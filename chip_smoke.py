@@ -19,7 +19,17 @@ the CUDA toolkit. Phases, each printed as it goes:
    the bench configuration, held against the JAX package's trajectory
    (lidarslam_tpu_torch/data/vlp16_bench_ref.npz, made by
    scripts/make_torch_reference.py) and the simulator ground truth, with
-   exactly 2 kernel launches per localized frame.
+   exactly 2 kernel launches per localized frame; then a torch.profiler
+   window over 8 more synchronous frames (device busy time, kernels);
+5. the stream: `add_frame_async` x 30 + `flush` at `stream_window=8` on the
+   same sweeps, every steady-state frame a CUDA-graph replay, held against
+   the JAX package's streaming trajectory (vlp16_bench_stream_ref.npz) and
+   the ground truth; ms/frame over the full windows (frames 9-24). On a
+   second stream: one eager step under
+   `torch.cuda.set_sync_debug_mode("error")` (no host sync), one replay
+   against the eager step from the same state, and a torch.profiler window
+   over one full window of replays (the k-NN kernel runs exactly twice per
+   frame inside the graph).
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero before printing a result.
@@ -37,7 +47,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_bench_ref.npz"
+STREAM_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_bench_stream_ref.npz"
 N_FRAMES = 30
+WINDOW = 8                  # bench_config's stream_window
+TIMED = range(9, 25)        # the stream's full windows of replays
+PROFILED = range(17, 25)    # frames of the profiled windows
+# one replay against the eager step from the same state
+REPLAY_TOL_M, REPLAY_TOL_DEG = 1e-5, 1e-4
 PRUNE_RADIUS = 5.0
 # the reference CI's per-pose tolerance (io/csv_log.py) and the simulator
 # ground-truth bounds of tests/test_slam_e2e.py
@@ -220,14 +236,69 @@ def phase_kernel(frames):
             "plain_ms": plain_ms["edges"] + plain_ms["planes"]}
 
 
+def _check_trajectory(tag, frames, results, ref):
+    """Poses against a JAX reference trajectory and the ground truth; no
+    failed frame. Returns the worst (m, deg) of each."""
+    import numpy as np
+
+    from lidarslam_tpu_torch.core import se3
+
+    if len(results) != len(frames) or ref["poses"].shape[0] != len(frames):
+        raise AssertionError(f"[{tag}] {len(results)} results, {ref['poses'].shape[0]} "
+                             f"reference poses for {len(frames)} frames")
+    gt0 = frames[0]["gt_pose"]
+    worst_ref, worst_gt = (0.0, 0.0), (0.0, 0.0)
+    for i, (f, r) in enumerate(zip(frames, results)):
+        pose = r["pose"]
+        if not np.isfinite(pose).all():
+            raise AssertionError(f"[{tag}] frame {i}: non-finite pose")
+        e_ref = pose_errors(pose, ref["poses"][i])
+        e_gt = pose_errors(pose, se3.hmat_inverse(gt0) @ f["gt_pose"])
+        worst_ref = tuple(max(a, b) for a, b in zip(worst_ref, e_ref))
+        worst_gt = tuple(max(a, b) for a, b in zip(worst_gt, e_gt))
+        if e_ref[0] > REF_TOL_M or e_ref[1] > REF_TOL_DEG:
+            raise AssertionError(f"[{tag}] frame {i}: {e_ref} from the JAX reference")
+        if e_gt[0] > GT_TOL_M or e_gt[1] > GT_TOL_DEG:
+            raise AssertionError(f"[{tag}] frame {i}: {e_gt} from ground truth")
+    n_failed = sum(bool(r["failure"]) for r in results)
+    if n_failed:
+        raise AssertionError(f"[{tag}] {n_failed} failed frames")
+    return worst_ref, worst_gt
+
+
+def _profile(fn, n_frames: int):
+    """torch.profiler over `fn` (which ends in a device sync): device busy
+    ms/frame, device kernels/frame, and k-NN kernel executions."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us, kernels, knn = 0.0, 0, 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        busy_us += evt.self_cuda_time_total if t is None else t
+        if not evt.key.startswith(("Memcpy", "Memset")):
+            kernels += evt.count
+        if "knn_kernel" in evt.key:
+            knn += evt.count
+    if busy_us <= 0 or kernels == 0:
+        raise AssertionError("torch.profiler saw no device time")
+    return {"busy_ms": busy_us / 1000.0 / n_frames, "kernels": kernels / n_frames,
+            "knn": knn}
+
+
 def phase_slice(frames):
     """30 VLP-16 sweeps through Slam.add_frame on the card."""
     import numpy as np
     import torch
 
     from lidarslam_tpu_torch import Slam
-    from lidarslam_tpu_torch.core import se3
-    from lidarslam_tpu_torch.ops import cuda_knn
+    from lidarslam_tpu_torch.ops import cuda_knn, icp
 
     ref = np.load(REF_PATH)
     if ref["poses"].shape[0] != len(frames):
@@ -243,31 +314,16 @@ def phase_slice(frames):
         wall.append(time.perf_counter() - t0)
     launches = cuda_knn.LAUNCHES
 
-    gt0 = frames[0]["gt_pose"]
-    worst_ref, worst_gt = (0.0, 0.0), (0.0, 0.0)
-    n_failed = sum(bool(r["failure"]) for r in results)
-    for i, (f, r) in enumerate(zip(frames, results)):
-        pose = r["pose"]
-        if not np.isfinite(pose).all():
-            raise AssertionError(f"frame {i}: non-finite pose")
-        e_ref = pose_errors(pose, ref["poses"][i])
-        e_gt = pose_errors(pose, se3.hmat_inverse(gt0) @ f["gt_pose"])
-        worst_ref = tuple(max(a, b) for a, b in zip(worst_ref, e_ref))
-        worst_gt = tuple(max(a, b) for a, b in zip(worst_gt, e_gt))
-        if e_ref[0] > REF_TOL_M or e_ref[1] > REF_TOL_DEG:
-            raise AssertionError(f"frame {i}: {e_ref} from the JAX reference")
-        if e_gt[0] > GT_TOL_M or e_gt[1] > GT_TOL_DEG:
-            raise AssertionError(f"frame {i}: {e_gt} from ground truth")
-    if n_failed:
-        raise AssertionError(f"{n_failed} failed frames")
+    worst_ref, worst_gt = _check_trajectory("slice", frames, results, ref)
     localized = len(frames) - 1   # the first frame only seeds the maps
     if launches != 2 * localized:
         raise AssertionError(f"{launches} kernel launches for {localized} localized "
                              "frames (expected 2 each)")
     n_matches = [r["n_matches"] for r in results[1:]]
     ref_matches = [int(v) for v in ref["n_matches"][1:len(frames)]]
-    print(f"[slice] {len(frames)} frames, {n_failed} failed, {launches} kernel "
-          f"launches; median {1000 * statistics.median(wall[1:]):.2f} ms/frame "
+    ms_frame = 1000 * statistics.median(wall[1:])
+    print(f"[slice] {len(frames)} frames, 0 failed, {launches} kernel "
+          f"launches; median {ms_frame:.2f} ms/frame "
           f"(first frame {1000 * wall[0]:.1f} ms)", flush=True)
     print(f"[slice] min n_matches {min(n_matches)} (JAX reference {min(ref_matches)}); "
           f"max pose divergence from the reference {worst_ref[0]:.3e} m / "
@@ -278,7 +334,135 @@ def phase_slice(frames):
         print(f"[slice] {k.name} map at frame {len(frames)}: {n_valid} of "
               f"{m.xyz.shape[0]} slots valid ({100 * n_valid / m.xyz.shape[0]:.1f}%), "
               f"overflow {int(slam.map_overflow[int(k)])}", flush=True)
-    return launches
+
+    # profiled: frames 17-24 of a second run, after 17 unprofiled ones; the
+    # ICP rounds the host exit let run are counted (the stream runs them all)
+    slam = Slam(bench_config(16, 1800), device="cuda")
+    for f in frames[:PROFILED.start]:
+        slam.add_frame(f)
+    rounds = []
+    robust_lm = icp.solver.robust_lm
+    icp.solver.robust_lm = lambda *a, **k: rounds.append(1) or robust_lm(*a, **k)
+    try:
+        prof = _profile(lambda: [slam.add_frame(frames[i]) for i in PROFILED],
+                        len(PROFILED))
+    finally:
+        icp.solver.robust_lm = robust_lm
+    print(f"[slice] profiled frames {PROFILED.start}-{PROFILED.stop - 1}: device busy "
+          f"{prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} device kernels/frame, "
+          f"{len(rounds)} ICP rounds run of "
+          f"{slam.cfg.localization_icp_max_iter * len(PROFILED)}", flush=True)
+    return {"launches": launches, "ms_frame": ms_frame, **prof}
+
+
+def phase_stream(frames, card: str, sync: dict):
+    """30 VLP-16 sweeps through Slam.add_frame_async + flush on the card:
+    CUDA-graph replays, checked against the JAX streaming trajectory; then
+    the sync-free, replay-equals-eager and kernel-in-graph checks."""
+    import numpy as np
+    import torch
+
+    from lidarslam_tpu_torch import Slam
+    from lidarslam_tpu_torch.core import se3
+    from lidarslam_tpu_torch.ops import cuda_knn, pipeline
+    from lidarslam_tpu_torch.ops.frame import build_range_image, flatten_packed
+    from lidarslam_tpu_torch.ops.stream_graph import clone_tree
+
+    ref = np.load(STREAM_REF_PATH)
+    cfg = bench_config(16, 1800)
+    if cfg.stream_window != WINDOW or not cfg.flat_wire:
+        raise AssertionError("bench_config no longer streams 8-sweep flat-wire windows")
+
+    slam = Slam(cfg, device="cuda")
+    cuda_knn.LAUNCHES = 0
+    t_all = time.perf_counter()
+    for i, f in enumerate(frames):
+        if i == TIMED.start:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if slam.add_frame_async(f) != i:
+            raise AssertionError(f"frame {i} was not enqueued as frame {i}")
+        if i == TIMED.stop - 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    results = slam.flush()
+    wall_all = time.perf_counter() - t_all
+    calls = cuda_knn.LAUNCHES
+    if slam._graph is None or slam._graph.graph is None:
+        raise AssertionError("the stream never captured its CUDA graph")
+    # the wrapper runs once per type in each warm-up step and in the
+    # capture; replays launch the captured kernel without it
+    if calls != 2 * (slam._graph.warmup_steps + 1):
+        raise AssertionError(f"[stream] {calls} k-NN wrapper calls for "
+                             f"{slam._graph.warmup_steps} warm-up steps and 1 capture")
+    worst_ref, worst_gt = _check_trajectory("stream", frames, results, ref)
+    ms_frame = 1000 * (t1 - t0) / len(TIMED)
+    n_matches = [r["n_matches"] for r in results[1:]]
+    ref_matches = [int(v) for v in ref["n_matches"][1:]]
+    bad = [i for i, (a, b) in enumerate(zip(n_matches, ref_matches), 1)
+           if abs(a - b) > 0.01 * b]
+    if bad:
+        raise AssertionError(f"[stream] n_matches off the JAX reference by > 1% "
+                             f"at frames {bad}")
+    print(f"[stream] {len(frames)} frames, 0 failed, {calls} Python k-NN calls "
+          f"(first frame, {slam._graph.warmup_steps} warm-up steps, 1 capture); "
+          f"{ms_frame:.2f} ms/frame over frames {TIMED.start}-{TIMED.stop - 1} "
+          f"(enqueue + device sync); all 30 frames + flush {1000 * wall_all:.1f} ms",
+          flush=True)
+    print(f"[stream] min n_matches {min(n_matches)} (JAX reference {min(ref_matches)}); "
+          f"max pose divergence from the JAX streaming reference {worst_ref[0]:.3e} m / "
+          f"{worst_ref[1]:.3e} deg; from ground truth {worst_gt[0]:.3e} m / "
+          f"{worst_gt[1]:.3e} deg", flush=True)
+
+    # second stream: frames 0-16 through the API, then frame 17 by hand
+    slam = Slam(cfg, device="cuda")
+    for f in frames[:PROFILED.start]:
+        slam.add_frame_async(f)
+    g = slam._graph
+    f = frames[PROFILED.start]
+    host = build_range_image(f["xyz"], f["intensity"], f["laser_id"], f["time"],
+                             cfg.extractor.n_rings, cfg.extractor.max_ring_points,
+                             packed=True, device=False)
+    record = g.wire.pack([flatten_packed(host, g.wire.capacity)],
+                         [np.float32(f["stamp"])]).to("cuda")[0]
+    flat, stamp = g.wire.unpack(record)
+    before = clone_tree(g.state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, packed_eager, _ = pipeline.process_frame_stream(
+            flat, before, stamp, g.az, cfg, slam._map_cfgs_tuple, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    g.record.copy_(record)
+    g.graph.replay()
+    packed_graph = g._outputs[0].clone()
+    e, r = packed_eager.cpu().numpy(), packed_graph.cpu().numpy()
+    ue, ur = pipeline.unpack_scalars(e[:64]), pipeline.unpack_scalars(r[:64])
+    dt, dr = pose_errors(se3.pose_to_hmat(ur["pose"]), se3.pose_to_hmat(ue["pose"]))
+    if dt > REPLAY_TOL_M or dr > REPLAY_TOL_DEG or ue["total"] != ur["total"] \
+            or (ue["counts"] != ur["counts"]).any():
+        raise AssertionError(f"[stream] replay != eager step: {dt} m, {dr} deg, "
+                             f"matches {ur['total']} vs {ue['total']}")
+    print(f"[stream] eager step under set_sync_debug_mode('error'): no sync; "
+          f"replay vs eager from the same state: {dt:.3e} m / {dr:.3e} deg, "
+          f"matches {ur['total']} == {ue['total']}", flush=True)
+
+    # frames 18-25 (one full window of replays), profiled
+    window = range(PROFILED.start + 1, PROFILED.start + 1 + WINDOW)
+    prof = _profile(lambda: [slam.add_frame_async(frames[i]) for i in window], WINDOW)
+    if prof["knn"] != 2 * WINDOW:
+        raise AssertionError(f"[stream] knn_kernel ran {prof['knn']} times in a window "
+                             f"of {WINDOW} replays (expected {2 * WINDOW})")
+    print(f"[stream] profiled window of {WINDOW} replays (frames {window.start}-"
+          f"{window.stop - 1}): knn_kernel executed {prof['knn']} times "
+          f"({prof['knn'] / WINDOW:.1f}/frame); device busy {prof['busy_ms']:.2f} "
+          f"ms/frame, {prof['kernels']:.1f} device kernels/frame", flush=True)
+    print(f"[stream-vs-sync] {card}: stream {ms_frame:.2f} ms/frame, sync "
+          f"{sync['ms_frame']:.2f} ms/frame; device busy stream {prof['busy_ms']:.2f} / "
+          f"sync {sync['busy_ms']:.2f} ms/frame; kernels/frame stream "
+          f"{prof['kernels']:.1f} / sync {sync['kernels']:.1f}", flush=True)
+    return {"ms_frame": ms_frame, "calls": calls, **prof}
 
 
 def main() -> int:
@@ -296,7 +480,7 @@ def main() -> int:
               "False); the port's kernels run only on an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    phase_env()
+    card = phase_env()
     phase_build()
     t0 = time.perf_counter()
     frames = render_frames(N_FRAMES)
@@ -304,12 +488,16 @@ def main() -> int:
           f"(~{len(frames[0]['xyz'])} points each) in {time.perf_counter() - t0:.1f} s",
           flush=True)
     rec = phase_kernel(frames)
-    launches = phase_slice(frames)
+    sync = phase_slice(frames)
+    stream = phase_stream(frames, card, sync)
     print(json.dumps({"kernels": [{
         "name": "knn", "route": "cuda", "source": "lidarslam_tpu_torch/csrc/knn.cu",
         "replaces": "lidarslam_tpu/ops/pallas_knn.py:121",
-        "launches": launches, "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"], "plain_ms": rec["plain_ms"]}]}), flush=True)
+        "launches": sync["launches"], "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "stream_wrapper_calls": stream["calls"], "stream_executions": stream["knn"],
+        "stream_frames_profiled": WINDOW}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

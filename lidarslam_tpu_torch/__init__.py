@@ -7,7 +7,7 @@ This package never imports jax.
 
     from lidarslam_tpu_torch import Slam, SlamConfig
     slam = Slam(SlamConfig(), device="cuda")
-    result = slam.add_frame(sweep)
+    result = slam.add_frame(sweep)          # or: add_frame_async(...), flush()
 """
 
 from lidarslam_tpu_torch.config import SlamConfig

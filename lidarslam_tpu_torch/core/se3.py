@@ -184,3 +184,67 @@ def jcompose_pose(pose_a, pose_b):
     Ra, ta = jpose_to_rt(pose_a)
     Rb, tb = jpose_to_rt(pose_b)
     return jrt_to_pose(Ra @ Rb, Ra @ tb + ta)
+
+
+def jquat_from_matrix(R):
+    """(..., 3, 3) -> (..., 4) quaternion (w, x, y, z), 4-branch Shepperd
+    evaluated on every branch and selected by mask."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(v):
+        return torch.sqrt(torch.clamp(v, min=1e-30))
+
+    s0 = safe_sqrt(tr + 1.0) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], dim=-1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], dim=-1)
+    s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], dim=-1)
+    s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], dim=-1)
+
+    use0 = (tr > 0.0)[..., None]
+    use1 = ((m00 >= m11) & (m00 >= m22))[..., None]
+    use2 = (m11 >= m22)[..., None]
+    q = torch.where(use0, q0, torch.where(use1, q1, torch.where(use2, q2, q3)))
+    norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+    return q / torch.clamp(norm, min=1e-30)
+
+
+def jquat_to_matrix(q):
+    """(..., 4) (w, x, y, z) unit quaternion -> (..., 3, 3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    row0 = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1)
+    row1 = torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1)
+    row2 = torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def jquat_slerp(q0, q1, u):
+    """Slerp between quaternions, shortest arc; u broadcastable (...,)."""
+    u = u[..., None]
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0.0, -q1, q1)
+    dot = torch.clamp(torch.abs(dot), -1.0, 1.0)
+    theta = torch.acos(dot)
+    sin_theta = torch.sin(theta)
+    # fall back to lerp for tiny angles
+    small = sin_theta < 1e-6
+    safe_sin = torch.where(small, 1.0, sin_theta)
+    w0 = torch.where(small, 1.0 - u, torch.sin((1.0 - u) * theta) / safe_sin)
+    w1 = torch.where(small, u, torch.sin(u * theta) / safe_sin)
+    q = w0 * q0 + w1 * q1
+    norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+    return q / torch.clamp(norm, min=1e-30)
+
+
+def jinterpolate_rt(R0, t0v, R1, t1v, t, t0, t1):
+    """Linear translation + slerp rotation between (R0, t0v) at t0 and
+    (R1, t1v) at t1, evaluated at times t; extrapolates outside [t0, t1]
+    (MotionModel.h:115-124)."""
+    u = (t - t0) / (t1 - t0)
+    q = jquat_slerp(jquat_from_matrix(R0), jquat_from_matrix(R1), u)
+    return jquat_to_matrix(q), t0v + u[..., None] * (t1v - t0v)

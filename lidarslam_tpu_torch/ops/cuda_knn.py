@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 from typing import NamedTuple, Optional
@@ -70,9 +71,9 @@ def prepare_map(xyz: torch.Tensor, valid: torch.Tensor) -> KnnIndex:
     M = xyz.shape[0]
     nb = max(-(-M // MAP_BLOCK), 1)
     pad = nb * MAP_BLOCK - M
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=xyz.device)
+    inf = float("inf")
     p = torch.where(valid[:, None], xyz.to(torch.float32), inf)
-    p = torch.nn.functional.pad(p, (0, 0, 0, pad), value=float("inf"))
+    p = torch.nn.functional.pad(p, (0, 0, 0, pad), value=inf)
     blocks = p.reshape(nb, MAP_BLOCK, 3)
     bmin = blocks.amin(dim=1)
     bmax = torch.where(blocks.isfinite(), blocks, -inf).amax(dim=1)
@@ -90,31 +91,42 @@ def plain_knn(xyz, valid, queries, k: int, q_valid=None):
 
     The (d2, slot) order is one int64 key per candidate: the float bits of a
     non-negative d2 order like the value, so (bits << 32) | slot sorts
-    lexicographically and `topk` never meets a tie.
+    lexicographically and `topk` never meets a tie. Each chunk writes its
+    keys word by word (little-endian: slot low, d2 bits high) behind the
+    running best k of one reused candidate buffer, and d2 is built in place
+    in the same float order.
 
     Returns (d2 (Q, k) f32, idx (Q, k) i32, nbr (Q, k, 3) f32)."""
+    if sys.byteorder != "little":
+        raise RuntimeError("plain_knn writes its int64 keys as little-endian words")
     M = xyz.shape[0]
     Q = queries.shape[0]
     dev = queries.device
     qx, qy, qz = queries[:, 0:1], queries[:, 1:2], queries[:, 2:3]
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
-    best = torch.full((Q, k), (0x7F800000 << 32), dtype=torch.int64, device=dev)
-    for c0 in range(0, M, PLAIN_CHUNK):
-        c1 = min(c0 + PLAIN_CHUNK, M)
-        px = xyz[c0:c1, 0][None, :]
-        py = xyz[c0:c1, 1][None, :]
-        pz = xyz[c0:c1, 2][None, :]
-        dx = qx - px
-        dy = qy - py
-        dz = qz - pz
-        d2 = dx * dx
-        d2 = d2 + dy * dy
-        d2 = d2 + dz * dz
-        d2 = torch.where(valid[c0:c1][None, :], d2, inf)
-        slot = torch.arange(c0, c1, dtype=torch.int64, device=dev)[None, :]
-        key = (d2.view(torch.int32).to(torch.int64) << 32) | slot
-        cand = torch.cat([best, key], dim=1)
-        best = torch.topk(cand, k, dim=1, largest=False, sorted=True).values
+    inf = float("inf")
+    chunk = min(PLAIN_CHUNK, M)
+    cand = torch.empty((Q, k + chunk), dtype=torch.int64, device=dev)
+    words = cand.view(torch.int32).view(Q, k + chunk, 2)
+    d2 = torch.empty((Q, chunk), dtype=torch.float32, device=dev)
+    sq = torch.empty((Q, chunk), dtype=torch.float32, device=dev)
+    slots = torch.arange(0, M, dtype=torch.int32, device=dev)
+    cand[:, :k] = 0x7F800000 << 32
+    for c0 in range(0, M, chunk):
+        c1 = min(c0 + chunk, M)
+        n = c1 - c0
+        d, s = d2[:, :n], sq[:, :n]
+        torch.sub(qx, xyz[c0:c1, 0][None, :], out=d)
+        d.mul_(d)
+        torch.sub(qy, xyz[c0:c1, 1][None, :], out=s)
+        d.add_(s.mul_(s))
+        torch.sub(qz, xyz[c0:c1, 2][None, :], out=s)
+        d.add_(s.mul_(s))
+        d.masked_fill_(~valid[c0:c1][None, :], inf)
+        words[:, k:k + n, 0] = slots[None, c0:c1]
+        words[:, k:k + n, 1] = d.view(torch.int32)
+        cand[:, :k] = torch.topk(cand[:, :k + n], k, dim=1, largest=False,
+                                 sorted=True).values
+    best = cand[:, :k]
     d2 = (best >> 32).to(torch.int32).view(torch.float32)
     if q_valid is not None:
         d2 = torch.where(q_valid[:, None], d2, inf)

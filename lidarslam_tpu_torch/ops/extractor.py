@@ -97,7 +97,10 @@ def extract_keypoints(ri: RangeImage, azimuthal_resolution: float,
 
     # ---------------- invalidation (SSKE.cxx:207-308) ----------------
     angle_beam_normal = math.radians(90.0 - cfg.min_beam_surface_angle)
-    az = torch.tensor(azimuthal_resolution, dtype=torch.float32, device=dev)
+    # a device scalar in the streaming step; a host float is filled in on
+    # the device (no host->device copy)
+    az = (azimuthal_resolution if isinstance(azimuthal_resolution, torch.Tensor)
+          else torch.full((), azimuthal_resolution, dtype=torch.float32, device=dev))
     coeff = torch.sin(az) / torch.cos(az + angle_beam_normal)
     max_pos_diff = torch.clamp(L * coeff, min=0.02)
     sq_thr = max_pos_diff * max_pos_diff                            # per outer point

@@ -4,9 +4,14 @@ A sweep is a ring-major range image: (R, C) tensors, row = laser ring,
 column = firing index within the ring, packed left, with a validity mask.
 Keypoint sets are fixed-capacity (K,) struct-of-arrays with a count.
 
-The host->device wire is the JAX package's `ByteRangeImage` byte layout
-(4 mm int16 coordinates, u8 intensity, f16 per-point time, u8 validity), so
-the port sees bit-identically the same quantized sweep as the reference.
+The host->device wires are the JAX package's, byte for byte, so the port
+sees bit-identically the same quantized sweep as the reference:
+- `ByteRangeImage`: one buffer of 4 mm int16 coordinates, u8 intensity,
+  f16 per-point time and u8 validity (the per-sweep path);
+- `PackedRangeImage`: the same planes with u8 times over the sweep's span
+  and per-ring counts instead of the validity plane (host-built window
+  sweeps), and `FlatRangeImage`, its valid points only, prefix-packed into
+  a fixed capacity P (the windowed streaming wire).
 """
 
 from __future__ import annotations
@@ -26,6 +31,123 @@ class RangeImage(NamedTuple):
     intensity: torch.Tensor  # (R, C) float32
     time: torch.Tensor       # (R, C) float32 — offset [s] from the frame stamp
     valid: torch.Tensor      # (R, C) bool — packed left per row
+
+
+class PackedRangeImage(NamedTuple):
+    """Wire-compact sweep: int16 coordinates (4 mm), u8 intensity, u8 times
+    over the sweep's [t_min, t_max] span, and per-ring counts in place of
+    the validity plane (rows are left-packed). Built on the host as numpy
+    planes (`build_range_image(..., packed=True, device=False)`);
+    `unpack` takes it as tensors (`to_device_range_image`)."""
+
+    xyz_q: torch.Tensor      # (R, C, 3) int16
+    intensity: torch.Tensor  # (R, C) uint8
+    t_q: torch.Tensor        # (R, C) uint8
+    t_min: torch.Tensor      # () float32
+    t_scale: torch.Tensor    # () float32
+    counts: torch.Tensor     # (R,) int32 — valid points per ring, left-packed
+
+    def unpack(self) -> RangeImage:
+        C = self.intensity.shape[-1]
+        col = torch.arange(C, dtype=torch.int32, device=self.counts.device)
+        valid = col[None, :] < self.counts[:, None]
+        time = self.t_min + self.t_q.to(torch.float32) * self.t_scale
+        return RangeImage(
+            xyz=self.xyz_q.to(torch.float32) * XYZ_QUANT_SCALE,
+            intensity=self.intensity.to(torch.float32),
+            time=torch.where(valid, time, 0.0),
+            valid=valid)
+
+
+def _pack_planes(q, inten8, time_plane, valid8) -> PackedRangeImage:
+    """Host-side PackedRangeImage (numpy planes) from quantized planes."""
+    valid = valid8.astype(bool)
+    if valid.any():
+        vals = np.asarray(time_plane, np.float32)[valid]
+        t_min = float(vals.min())
+        span = float(vals.max()) - t_min
+    else:
+        t_min, span = 0.0, 0.0
+    scale = span / 255.0 if span > 0 else 1.0
+    t_q = np.clip(np.round((np.asarray(time_plane, np.float32) - t_min) / scale),
+                  0, 255).astype(np.uint8)
+    return PackedRangeImage(
+        xyz_q=q, intensity=inten8, t_q=t_q,
+        t_min=np.float32(t_min), t_scale=np.float32(scale),
+        counts=valid.sum(axis=1).astype(np.int32))
+
+
+class FlatRangeImage:
+    """Prefix-packed wire: only the valid points of a PackedRangeImage, as
+    the concatenation of the per-ring prefixes, in a fixed capacity P.
+
+    P is `SlamConfig.wire_capacity`, or R*C when that is 0 (lossless). A
+    sweep above P keeps a uniform per-ring cap (`_water_fill_cap`): the
+    tail columns of its fullest rings are dropped. Layout: xyz_q (P, 3)
+    int16, meta (P, 2) uint8 [intensity, t_q], t_min/t_scale () float32,
+    counts (R,) int32; `shape` = (R, C). Fields are numpy arrays on the
+    host and tensors (possibly with a leading window axis) after upload."""
+
+    __slots__ = ("xyz_q", "meta", "t_min", "t_scale", "counts", "shape")
+    FIELDS = ("xyz_q", "meta", "t_min", "t_scale", "counts")
+
+    def __init__(self, xyz_q, meta, t_min, t_scale, counts, shape):
+        self.xyz_q = xyz_q
+        self.meta = meta
+        self.t_min = t_min
+        self.t_scale = t_scale
+        self.counts = counts
+        self.shape = tuple(shape)
+
+    def unpack(self) -> RangeImage:
+        R, C = self.shape
+        P = self.xyz_q.shape[-2]
+        dev = self.counts.device
+        counts = self.counts
+        starts = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
+        col = torch.arange(C, dtype=torch.int32, device=dev)
+        valid = col[None, :] < counts[:, None]
+        idx = torch.clamp(starts[:, None] + col[None, :], max=P - 1).reshape(-1).to(torch.int64)
+        xyz = self.xyz_q[idx].reshape(R, C, 3)
+        meta = self.meta[idx].reshape(R, C, 2)
+        xyz = torch.where(valid[..., None], xyz.to(torch.float32) * XYZ_QUANT_SCALE, 0.0)
+        inten = torch.where(valid, meta[..., 0].to(torch.float32), 0.0)
+        time = self.t_min + meta[..., 1].to(torch.float32) * self.t_scale
+        return RangeImage(xyz=xyz, intensity=inten,
+                          time=torch.where(valid, time, 0.0), valid=valid)
+
+
+def _water_fill_cap(counts: np.ndarray, budget: int) -> np.ndarray:
+    """Largest uniform per-ring cap k with sum(min(counts, k)) <= budget."""
+    if counts.sum() <= budget:
+        return counts
+    lo, hi = 0, int(counts.max())
+    while lo < hi:                      # bisect on k (<= 12 iterations)
+        mid = (lo + hi + 1) // 2
+        if int(np.minimum(counts, mid).sum()) <= budget:
+            lo = mid
+        else:
+            hi = mid - 1
+    return np.minimum(counts, lo)
+
+
+def flatten_packed(ri: PackedRangeImage, wire_capacity: int = 0) -> FlatRangeImage:
+    """Host-side PackedRangeImage -> FlatRangeImage (see FlatRangeImage)."""
+    q = np.asarray(ri.xyz_q)
+    R, C = q.shape[:2]
+    counts = np.asarray(ri.counts).astype(np.int64)
+    P = int(wire_capacity) if wire_capacity else R * C
+    kept = _water_fill_cap(counts, P)
+    mask = np.arange(C)[None, :] < kept[:, None]
+    n = int(kept.sum())
+    xyz_q = np.zeros((P, 3), np.int16)
+    meta = np.zeros((P, 2), np.uint8)
+    xyz_q[:n] = q[mask]
+    meta[:n, 0] = np.asarray(ri.intensity)[mask]
+    meta[:n, 1] = np.asarray(ri.t_q)[mask]
+    return FlatRangeImage(xyz_q=xyz_q, meta=meta, t_min=np.float32(ri.t_min),
+                          t_scale=np.float32(ri.t_scale),
+                          counts=kept.astype(np.int32), shape=(R, C))
 
 
 class ByteRangeImage:
@@ -69,9 +191,34 @@ def pack_range_image_bytes(q, inten8, t16, valid8, device=None) -> ByteRangeImag
 
 
 def ensure_range_image(ri) -> RangeImage:
-    if isinstance(ri, ByteRangeImage):
+    if isinstance(ri, (ByteRangeImage, PackedRangeImage, FlatRangeImage)):
         return ri.unpack()
     return ri
+
+
+def stack_range_images(ris, device=None):
+    """Stack host-built sweeps (numpy fields) into one leading-axis-W
+    container with one tensor per field, on `device` when given."""
+    r0 = ris[0]
+    fields = FlatRangeImage.FIELDS if isinstance(r0, FlatRangeImage) else type(r0)._fields
+
+    def stack(name):
+        t = torch.from_numpy(np.stack([np.asarray(getattr(r, name)) for r in ris]))
+        return t if device is None else t.to(device)
+    if isinstance(r0, FlatRangeImage):
+        return FlatRangeImage(*(stack(f) for f in fields), r0.shape)
+    return type(r0)(*(stack(f) for f in fields))
+
+
+def to_device_range_image(ri, device=None):
+    """One host-built sweep (numpy fields) as tensors on `device`."""
+    def up(a):
+        t = torch.from_numpy(np.asarray(a))
+        return t if device is None else t.to(device)
+    if isinstance(ri, FlatRangeImage):
+        return FlatRangeImage(*(up(getattr(ri, f)) for f in FlatRangeImage.FIELDS),
+                              ri.shape)
+    return type(ri)(*(up(a) for a in ri))
 
 
 class Keypoints(NamedTuple):
@@ -84,6 +231,76 @@ class Keypoints(NamedTuple):
     valid: torch.Tensor      # (K,) bool
     count: torch.Tensor      # () int32
 
+    @classmethod
+    def empty(cls, capacity: int, device):
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return cls(xyz=z((capacity, 3), torch.float32), intensity=z((capacity,), torch.float32),
+                   time=z((capacity,), torch.float32), ring=z((capacity,), torch.int32),
+                   valid=z((capacity,), torch.bool), count=z((), torch.int32))
+
+
+def flatten_keypoints(kp: Keypoints) -> torch.Tensor:
+    """One (7K+1,) float32 log buffer per keypoint set, a fresh tensor apart
+    from the stream state. Layout: x(K) y(K) z(K) intensity(K) time(K)
+    ring(K) valid(K) count(1)."""
+    f = torch.float32
+    return torch.cat([kp.xyz[:, 0], kp.xyz[:, 1], kp.xyz[:, 2], kp.intensity, kp.time,
+                      kp.ring.to(f), kp.valid.to(f), kp.count.to(f)[None]])
+
+
+class KeypointsView:
+    """Lazy host view over a flattened keypoint log buffer: the `Keypoints`
+    attribute surface as numpy arrays, copied from the device once, at the
+    first access. `row` picks one sweep of a window-stacked (W, 7K+1)
+    buffer."""
+
+    __slots__ = ("_buf", "_host", "_row")
+
+    def __init__(self, buf, row=None):
+        self._buf = buf
+        self._row = row
+        self._host = None
+
+    def _h(self):
+        if self._host is None:
+            b = self._buf if self._row is None else self._buf[self._row]
+            self._host = b.cpu().numpy()
+        return self._host
+
+    @property
+    def capacity(self):
+        return (self._buf.shape[-1] - 1) // 7
+
+    @property
+    def xyz(self):
+        h, K = self._h(), self.capacity
+        return np.stack([h[:K], h[K:2 * K], h[2 * K:3 * K]], axis=-1)
+
+    @property
+    def intensity(self):
+        h, K = self._h(), self.capacity
+        return h[3 * K:4 * K]
+
+    @property
+    def time(self):
+        h, K = self._h(), self.capacity
+        return h[4 * K:5 * K]
+
+    @property
+    def ring(self):
+        h, K = self._h(), self.capacity
+        return h[5 * K:6 * K].astype(np.int32)
+
+    @property
+    def valid(self):
+        h, K = self._h(), self.capacity
+        return h[6 * K:7 * K] != 0.0
+
+    @property
+    def count(self):
+        return np.int32(self._h()[-1])
+
 
 def build_range_image(xyz, intensity, laser_id, time, n_rings: int,
                       max_ring_points: int, packed: bool = False, device=None):
@@ -92,7 +309,9 @@ def build_range_image(xyz, intensity, laser_id, time, n_rings: int,
     Points are appended to their ring in input order (SSKE.cxx:139-161);
     points beyond `max_ring_points` per ring and rings >= n_rings are
     dropped. `packed=True` returns the quantized `ByteRangeImage` wire,
-    otherwise a float32 `RangeImage`; tensors go to `device` when given."""
+    otherwise a float32 `RangeImage`; tensors go to `device` when given.
+    `packed=True, device=False` returns a host `PackedRangeImage` of numpy
+    planes (the window path: several sweeps stack into one upload)."""
     xyz = np.asarray(xyz, np.float32)
     laser_id = np.asarray(laser_id, np.int64)
     keep = (laser_id >= 0) & (laser_id < n_rings)
@@ -123,6 +342,8 @@ def build_range_image(xyz, intensity, laser_id, time, n_rings: int,
     if packed:
         q = np.clip(np.round(img_xyz / XYZ_QUANT_SCALE), -32767, 32767).astype(np.int16)
         inten8 = np.clip(img_int, 0, 255).astype(np.uint8)
+        if device is False:
+            return _pack_planes(q, inten8, img_time, img_valid.astype(np.uint8))
         return pack_range_image_bytes(q, inten8, img_time.astype(np.float16),
                                       img_valid.astype(np.uint8), device=device)
 

@@ -3,10 +3,17 @@
 
 `icp_iters` rounds of (match every keypoint type, robust LM) with a linearly
 shrinking Tukey saturation distance (Slam.cxx:892-954, 1071-1156). The
-minimum-match guard and the state updates are `where`-gated as in the JAX
-package. The early exit — the reference BREAKS when LM converges in one
-step (Slam.cxx:950, 1151) — is a host branch: one read of the `active` flag
-per round, which skips the remaining rounds' matcher and LM work.
+minimum-match guard and the state updates are `where`-gated on the device
+`active` flag, as in the JAX package's loop body. The early exit — the
+reference BREAKS when LM converges in one step (Slam.cxx:950, 1151) — takes
+one of two forms with bit-identical results:
+
+- host exit (the synchronous path): one host read of `active` per round,
+  which skips the remaining rounds' matcher and LM work;
+- `gated=True` (the streaming step): all `icp_iters` rounds run and an
+  inactive round changes nothing, as a skipped round of the JAX
+  `while_loop` does. No host read, so the step can be captured in a CUDA
+  graph.
 
 With `MatchingConfig.reuse_knn` the map k-NN runs once, in round 0, and later
 rounds reuse the neighbour coordinates with exact distances against the
@@ -60,9 +67,10 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
                  params: MatchingConfig, solver_cfg: SolverConfig, icp_iters: int,
                  lm_max_iter: int, min_matches: int, prepared=None,
                  undistort_mode: UndistortionMode = UndistortionMode.NONE,
-                 extras=()) -> ICPResult:
+                 extras=(), gated: bool = False) -> ICPResult:
     """Run the ICP-LM loop from `pose0`. `prepared`: per-type
-    `cuda_knn.KnnIndex` (built here when missing on CUDA)."""
+    `cuda_knn.KnnIndex` (built here when missing on CUDA). `gated`: run
+    every round with no host read (see module docstring)."""
     if undistort_mode != UndistortionMode.NONE:
         raise NotImplementedError("undistortion is not ported yet "
                                   "(ROADMAP.md, Queue 1: undistortion)")
@@ -72,6 +80,7 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
                                       "(ROADMAP.md, Queue 1: blobs)")
     pose = pose0.to(torch.float32)
     dev = pose.device
+    active = torch.ones((), dtype=torch.bool, device=dev)
     failed = torch.zeros((), dtype=torch.bool, device=dev)
     total = torch.zeros((), dtype=torch.int32, device=dev)
     counts = torch.zeros((3,), dtype=torch.int32, device=dev)
@@ -92,8 +101,8 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
     knn_cache = None
 
     for it in range(icp_iters):
-        sat = torch.tensor(saturation_schedule(it, icp_iters, params),
-                           dtype=torch.float32, device=dev)
+        sat = torch.full((), saturation_schedule(it, icp_iters, params),
+                         dtype=torch.float32, device=dev)
         if reuse and it == 0:
             knn_cache = []
             for t in types:
@@ -117,17 +126,21 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
         res = solver.robust_lm(blocks, pose, sat, solver_cfg, lm_max_iter,
                                extras=extras)
 
-        pose = torch.where(enough, res.pose, pose)
-        H = torch.where(enough, res.H, H)
-        total = it_total
-        counts = torch.zeros((3,), dtype=torch.int32, device=dev)
+        step_ok = active & enough
+        pose = torch.where(step_ok, res.pose, pose)
+        H = torch.where(step_ok, res.H, H)
+        total = torch.where(active, it_total, total)
+        full_counts = torch.zeros((3,), dtype=torch.int32, device=dev)
         for i, t in enumerate(types):
-            counts[int(t)] = it_counts[i]
-        statuses = tuple(b.status for b in blocks)
-        weights = tuple(b.weight for b in blocks)
-        failed = failed | ~enough
-        active = enough & (res.n_success != 1)
-        if not bool(active):      # host read: the reference's early exit
+            full_counts[int(t)] = it_counts[i]
+        counts = torch.where(active, full_counts, counts)
+        statuses = tuple(torch.where(active, b.status, s)
+                         for b, s in zip(blocks, statuses))
+        weights = tuple(torch.where(active, b.weight, w)
+                        for b, w in zip(blocks, weights))
+        failed = failed | (active & ~enough)
+        active = step_ok & (res.n_success != 1)
+        if not gated and not bool(active):   # host read: the early exit
             break
 
     return ICPResult(pose=pose, failed=failed, total_matches=total,

@@ -1,21 +1,29 @@
-"""The per-sweep step (PyTorch port of `lidarslam_tpu/ops/pipeline.py`,
-synchronous single-LiDAR subset).
+"""The per-sweep step and the streaming step (PyTorch port of
+`lidarslam_tpu/ops/pipeline.py`, single-LiDAR subset).
 
 `process_frame` runs keypoint extraction, scan-to-map localization ICP, the
-keyframe gate and the rolling-map update for one sweep. The float64 world
-bookkeeping stays on the host (slam.py). Where the JAX package decides on
-device with `lax.cond`, this port branches on the host:
+keyframe gate and the rolling-map update for one sweep. Where the JAX
+package decides on device with `lax.cond` / `while_loop`, this port has two
+forms of `process_keypoints`:
 
-- the submap rebuild (`SubmapCache`) runs when the host-side `cache_stale`
-  flag says the map changed since the last rebuild;
-- the map update runs when the keyframe gate says so: the gate's outputs
-  are read in the frame's one transfer of packed scalars
-  (`pack_scalars`), and the update is issued after it. A keyframe then
+- synchronous (`Slam.add_frame`): host branches. The submap rebuild
+  (`SubmapCache`) runs when the host-side `cache_stale` flag says the map
+  changed since the last rebuild; the ICP exits early on a host read; the
+  keyframe gate travels in the frame's one transfer of packed scalars
+  (`pack_scalars`) and the map update is issued after it. A keyframe then
   reads the maps' post-insert overflow counts in a second small transfer.
+- `sync_free=True` (the streaming step): no host read. The submap rebuild
+  and the map update are computed every frame and `torch.where`-selected on
+  the device flags, the ICP runs its gated form, and the packed scalars
+  stay on the device. `_stream_step` chains the device `StreamState` from
+  frame to frame, so a CUDA graph can capture it (ops/stream_graph.py).
+
+Both forms compute the keyframe thresholds from the keyframe counter on the
+device, and the covariance by a Jacobi pseudo-inverse (solver.py).
 
 Ego-motion REGISTRATION, undistortion, overlap estimation, sensor
-constraints and the multi-chip branches are not ported yet; each raises if
-its configuration asks for it.
+constraints, the multi-LiDAR streaming step and the multi-chip branches are
+not ported yet; each raises if its configuration asks for it.
 """
 
 from __future__ import annotations
@@ -25,33 +33,38 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lidarslam_tpu_torch.config import EgoMotionMode, SlamConfig, UndistortionMode
+from lidarslam_tpu_torch.config import (EgoMotionMode, Keypoint, SlamConfig,
+                                        UndistortionMode)
 from lidarslam_tpu_torch.core import se3
-from lidarslam_tpu_torch.ops import extractor, icp, solver, voxel_map
-from lidarslam_tpu_torch.ops.frame import ensure_range_image
+from lidarslam_tpu_torch.ops import extractor, icp, solver, undistortion, voxel_map
+from lidarslam_tpu_torch.ops.frame import (FlatRangeImage, Keypoints, ensure_range_image,
+                                           flatten_keypoints)
 
 
 class SubmapCache(NamedTuple):
     """Lazily rebuilt submap selection (the reference's kd-tree validity
     discipline, Slam.cxx:1008-1035): `selected` is the submap mask over map
-    slots, `index` the k-NN kernel's map-side inputs (None on the CPU)."""
+    slots, `index` the k-NN kernel's map-side inputs (`cuda_knn.KnnIndex`;
+    None on the CPU)."""
 
     selected: torch.Tensor   # (M,) bool
     index: object            # cuda_knn.KnnIndex or None
 
 
 class FrameInputs(NamedTuple):
-    """Per-frame scalars/poses (MAP-frame where positional)."""
+    """Per-frame scalars/poses (MAP-frame where positional). The scalars are
+    host values on the synchronous path and () device tensors in the
+    streaming step."""
 
     trel_prior: torch.Tensor     # (6,) extrapolated ego-motion prior
     prev_pose: torch.Tensor      # (6,) previous world pose, MAP frame
-    stamp: float                 # current frame stamp
-    az_resolution: float         # extractor azimuthal resolution [rad]
+    stamp: object                # current frame stamp
+    az_resolution: object        # extractor azimuthal resolution [rad]
     kf_last_pose: torch.Tensor   # (6,) last keyframe pose, MAP frame
-    kf_counter: int
-    map_update: bool = True      # live map-update switch
+    kf_counter: object           # keyframes so far
+    map_update: object = True    # live map-update switch
     submap_cache: tuple = (None, None, None)  # per-type SubmapCache (or None)
-    cache_stale: bool = True     # map changed since the last rebuild
+    cache_stale: object = True   # map changed since the last rebuild
 
 
 class FrameResult(NamedTuple):
@@ -67,10 +80,13 @@ class FrameResult(NamedTuple):
     is_keyframe: torch.Tensor    # () bool — the map was updated
     statuses: tuple              # (Q,) uint8 per used type
     weights: tuple               # (Q,) f32 per used type
-    packed: np.ndarray           # (64,) host copy of pack_scalars
+    packed: object               # (64,) pack_scalars: a host copy (numpy) on
+                                 # the synchronous path, a tensor when sync-free
     submap_cache: tuple = (None, None, None)
-    cache_stale: bool = True     # for the next frame
+    cache_stale: object = True   # for the next frame
 
+
+PACKED_LEN = 64
 
 
 def pack_scalars(pose, trel, failed, total, counts, cov, roll_offset, is_kf,
@@ -102,16 +118,19 @@ def unpack_scalars(packed):
 
 
 def init_submap_cache(cfg: SlamConfig, map_cfgs, device):
-    """Empty per-type SubmapCache tuple (stale: rebuilt on first use). Types
-    with per-frame decay get no cache."""
+    """Empty per-type SubmapCache tuple (stale: rebuilt on first use), with
+    the structure the step produces (a KnnIndex of the empty selection on
+    CUDA). Types with per-frame decay get no cache."""
     caches = [None, None, None]
     for t in cfg.used_types:
         mc = map_cfgs[int(t)]
         if mc.decaying_threshold > 0:
             continue
-        caches[int(t)] = SubmapCache(
-            selected=torch.zeros((mc.capacity,), dtype=torch.bool, device=device),
-            index=None)
+        sel = torch.zeros((mc.capacity,), dtype=torch.bool, device=device)
+        view = voxel_map.SubmapView(
+            xyz=torch.zeros((mc.capacity, 3), dtype=torch.float32, device=device),
+            ring=None, valid=sel)
+        caches[int(t)] = SubmapCache(selected=sel, index=voxel_map.prepare_knn_index(view))
     return tuple(caches)
 
 
@@ -136,7 +155,7 @@ def check_supported(cfg: SlamConfig):
 
 def process_frame(ri, maps: tuple, inp: FrameInputs, cfg: SlamConfig,
                   map_cfgs: tuple, first_frame: bool) -> FrameResult:
-    """Full per-sweep step from a range image (or its byte wire)."""
+    """Full per-sweep step from a range image (or one of its wires)."""
     ri = ensure_range_image(ri)
     ext = extractor.extract_keypoints(ri, inp.az_resolution, cfg.extractor)
     return process_keypoints((ext.edges, ext.planes, ext.blobs), maps, inp, cfg,
@@ -151,8 +170,10 @@ def _bbox(world, valid):
 
 
 def process_keypoints(kps: tuple, maps: tuple, inp: FrameInputs, cfg: SlamConfig,
-                      map_cfgs: tuple, first_frame: bool) -> FrameResult:
-    """Per-sweep step from already-extracted keypoints."""
+                      map_cfgs: tuple, first_frame: bool,
+                      sync_free: bool = False) -> FrameResult:
+    """Per-sweep step from already-extracted keypoints. `sync_free`: the
+    streaming form, with no host read (see module docstring)."""
     check_supported(cfg)
     types = cfg.used_types
     dev = inp.prev_pose.device
@@ -177,20 +198,25 @@ def process_keypoints(kps: tuple, maps: tuple, inp: FrameInputs, cfg: SlamConfig
         for t in types:
             ti = int(t)
             m, kp, mc = maps[ti], kps[ti], map_cfgs[ti]
-            if inp.submap_cache[ti] is None or inp.cache_stale:
+            cache = inp.submap_cache[ti]
+            view = None
+            if cache is None or sync_free or inp.cache_stale:
                 world = se3.japply_pose(loc_prior, kp.xyz)
                 bbox_min, bbox_max = _bbox(world, kp.valid)
                 view = voxel_map.extract_submap_view(
                     m, bbox_min, bbox_max, torch.div(kp.count, 2, rounding_mode="floor"), mc)
-                if inp.submap_cache[ti] is not None:
-                    new_cache[ti] = SubmapCache(selected=view.valid,
-                                                index=voxel_map.prepare_knn_index(view))
-            else:
-                view = voxel_map.SubmapView(xyz=m.xyz, ring=None,
-                                            valid=inp.submap_cache[ti].selected)
-            index[ti] = view
+                if cache is not None:
+                    fresh = SubmapCache(selected=view.valid,
+                                        index=voxel_map.prepare_knn_index(view))
+                    # sync-free: the JAX package's lax.cond on cache_stale,
+                    # computed every frame and selected
+                    new_cache[ti] = _select(inp.cache_stale, fresh, cache) \
+                        if sync_free else fresh
             if new_cache[ti] is not None:
+                view = voxel_map.SubmapView(xyz=m.xyz, ring=None,
+                                            valid=new_cache[ti].selected)
                 prepared[ti] = new_cache[ti].index
+            index[ti] = view
 
         res = icp.icp_register(
             icp.ICPInputs(kp_xyz=tuple(k.xyz for k in kps),
@@ -198,7 +224,8 @@ def process_keypoints(kps: tuple, maps: tuple, inp: FrameInputs, cfg: SlamConfig
             types=types, pose0=loc_prior, params=cfg.loc_matching,
             solver_cfg=cfg.solver, icp_iters=cfg.localization_icp_max_iter,
             lm_max_iter=cfg.localization_lm_max_iter,
-            min_matches=cfg.min_nb_matched_keypoints, prepared=tuple(prepared))
+            min_matches=cfg.min_nb_matched_keypoints, prepared=tuple(prepared),
+            gated=sync_free)
 
         failed = res.failed
         pose = torch.where(failed, inp.prev_pose, res.pose)  # rollback (Slam.cxx:1098-1107)
@@ -214,12 +241,16 @@ def process_keypoints(kps: tuple, maps: tuple, inp: FrameInputs, cfg: SlamConfig
     trans = torch.linalg.vector_norm(kf_motion[:3])
     R_m, _ = se3.jpose_to_rt(kf_motion)
     rot = torch.acos(torch.clamp((torch.trace(R_m) - 1.0) / 2.0, -1.0, 1.0))
-    coef = np.float32(min(np.float32(inp.kf_counter) / np.float32(10.0), 1.0))
+    # keyframe thresholds ramp up over the first 10 keyframes
+    kf_counter = inp.kf_counter if isinstance(inp.kf_counter, torch.Tensor) \
+        else torch.full((), inp.kf_counter, dtype=torch.int32, device=dev)
+    coef = torch.clamp(kf_counter.to(torch.float32) / 10.0, max=1.0)
+    dist_thr = coef * cfg.kf_distance_threshold
+    ang_thr = torch.deg2rad(coef * cfg.kf_angle_threshold)
     n_map_pts = sum(maps[int(t)].n_points for t in types)
     is_kf = ((n_map_pts < cfg.min_nb_matched_keypoints * 10)
-             | (trans >= float(coef * np.float32(cfg.kf_distance_threshold)))
-             | (rot >= float(np.deg2rad(coef * np.float32(cfg.kf_angle_threshold)))))
-    do_update = is_kf & ~failed & bool(inp.map_update)
+             | (trans >= dist_thr) | (rot >= ang_thr))
+    do_update = is_kf & ~failed & inp.map_update
 
     # union world bbox of keypoints -> one shared roll offset
     world_kp = [None, None, None]
@@ -233,42 +264,60 @@ def process_keypoints(kps: tuple, maps: tuple, inp: FrameInputs, cfg: SlamConfig
         bbox_min = torch.minimum(bbox_min, lo)
         bbox_max = torch.maximum(bbox_max, hi)
     shared_cfg = map_cfgs[int(types[0])]
-    res_m = voxel_map.effective_resolution(shared_cfg)
     offset = voxel_map.compute_roll_offset(bbox_min, bbox_max, shared_cfg)
     offset = torch.where(do_update, offset, 0)
 
-    map_overflow = _overflow(maps, dev)
+    def update(ti):
+        kp = kps[ti]
+        shifted = world_kp[ti] - offset.to(torch.float32) * voxel_map.effective_resolution(
+            shared_cfg)
+        m = voxel_map.roll_by_offset(maps[ti], offset, map_cfgs[ti])
+        return voxel_map.add_points(m, shifted, kp.intensity, kp.time, kp.valid,
+                                    inp.stamp, map_cfgs[ti], fixed=False)
+
     kp_counts = torch.stack([kps[i].count for i in range(3)])
     overlap = torch.full((), -1.0, device=dev)
-    # the frame's one device->host transfer: everything the host needs, and
-    # the keyframe decision that gates the map update below. map_overflow is
-    # the cumulative count before this frame's insert; a keyframe re-reads it
-    # after the insert.
-    packed = pack_scalars(pose, trel, failed, total, counts, cov, offset,
-                          do_update, overlap, map_overflow, kp_counts).cpu().numpy()
-
-    # ---------------- map update (host branch on the keyframe gate) --------
     new_maps = list(maps)
-    updated = bool(packed[17] > 0.5)
-    if updated:
+    if sync_free:
+        # the JAX package's lax.cond on do_update: computed every frame and
+        # selected, so a non-keyframe keeps exactly the old map tensors'
+        # values (overflow included: the update adds the frame's drops once)
         for t in types:
-            ti = int(t)
-            kp = kps[ti]
-            shifted = world_kp[ti] - offset.to(torch.float32) * res_m
-            m = voxel_map.roll_by_offset(maps[ti], offset, map_cfgs[ti])
-            new_maps[ti] = voxel_map.add_points(m, shifted, kp.intensity, kp.time,
-                                                kp.valid, inp.stamp, map_cfgs[ti],
-                                                fixed=False)
-        packed[58:61] = _overflow(new_maps, dev).cpu().numpy()
+            new_maps[int(t)] = _select(do_update, update(int(t)), maps[int(t)])
+        packed = pack_scalars(pose, trel, failed, total, counts, cov, offset, do_update,
+                              overlap, _overflow(new_maps, dev), kp_counts)
+        cache_stale = torch.ones((), dtype=torch.bool, device=dev) if first_frame \
+            else do_update
+    else:
+        # the frame's one device->host transfer: everything the host needs,
+        # and the keyframe decision that gates the map update below.
+        # map_overflow is the cumulative count before this frame's insert; a
+        # keyframe re-reads it after the insert.
+        packed = pack_scalars(pose, trel, failed, total, counts, cov, offset, do_update,
+                              overlap, _overflow(maps, dev), kp_counts).cpu().numpy()
+        updated = bool(packed[17] > 0.5)
+        if updated:
+            for t in types:
+                new_maps[int(t)] = update(int(t))
+            packed[58:61] = _overflow(new_maps, dev).cpu().numpy()
+        # a map update invalidates the submap selection; first_frame skips
+        # matching, so its cache is never built
+        cache_stale = True if first_frame else updated
 
     return FrameResult(
         maps=tuple(new_maps), keypoints=tuple(kps), pose=pose, trel=trel,
         failed=failed, total_matches=total, match_counts=counts, covariance=cov,
         roll_offset=offset, is_keyframe=do_update, statuses=statuses, weights=wts,
-        packed=packed, submap_cache=tuple(new_cache),
-        # a map update invalidates the submap selection; first_frame skips
-        # matching, so its cache is never built
-        cache_stale=True if first_frame else updated)
+        packed=packed, submap_cache=tuple(new_cache), cache_stale=cache_stale)
+
+
+def _select(cond, a, b):
+    """`torch.where(cond, a, b)` over matching NamedTuples of tensors (None
+    leaves stay None)."""
+    if a is None:
+        return None
+    return type(a)(*(_select(cond, x, y) if isinstance(x, tuple) or x is None
+                     else torch.where(cond, x, y) for x, y in zip(a, b)))
 
 
 def _overflow(maps, device):
@@ -283,3 +332,141 @@ def _relative_pose(pose_a, pose_b):
     Ra, ta = se3.jpose_to_rt(pose_a)
     Rb, tb = se3.jpose_to_rt(pose_b)
     return se3.jrt_to_pose(Ra.T @ Rb, Ra.T @ (tb - ta))
+
+
+# -----------------------------------------------------------------------------
+#   Streaming (device-chained) mode
+# -----------------------------------------------------------------------------
+
+class StreamState(NamedTuple):
+    """Device-resident cross-frame state of the streaming mode: the
+    ego-motion prior is extrapolated on the device from the two previous
+    poses, and the keyframe state and the rolling origin accumulate there,
+    so nothing goes to the host until `Slam.flush`."""
+
+    maps: tuple            # VoxelMap per type (None when unused)
+    prev_keypoints: tuple  # Keypoints per type (previous sweep)
+    pose: torch.Tensor     # (6,) latest pose, current MAP frame
+    prev_pose: torch.Tensor  # (6,) pose before it, current MAP frame
+    t_cur: torch.Tensor    # () stamp of `pose`
+    t_prev: torch.Tensor   # () stamp of `prev_pose`
+    kf_pose: torch.Tensor  # (6,) last keyframe pose, current MAP frame
+    kf_counter: torch.Tensor  # () int32
+    origin_vox: torch.Tensor  # (3,) int32 accumulated window shifts
+    n_frames: torch.Tensor    # () int32
+    map_update: torch.Tensor  # () bool, live map-update switch
+    submap_cache: tuple = (None, None, None)  # per-type SubmapCache
+    cache_stale: torch.Tensor = None          # () bool
+
+
+def process_frame_stream(ri, state: StreamState, stamp, az_res, cfg: SlamConfig,
+                         map_cfgs: tuple, first_frame: bool):
+    """One chained streaming step: (state', packed (67,), kps_flat — one
+    (7K+1,) log buffer per type, frame.flatten_keypoints).
+
+    packed = pack_scalars (64) + origin_vox after this frame (3); its poses
+    are relative to the origin before this frame's roll. `stamp` and
+    `az_res` are () float32 device tensors."""
+    ri = ensure_range_image(ri)
+    ext = extractor.extract_keypoints(ri, az_res, cfg.extractor)
+    return _stream_step((ext.edges, ext.planes, ext.blobs), state, stamp, az_res, cfg,
+                        map_cfgs, first_frame)
+
+
+def _stream_step(kps, state: StreamState, stamp, az_res, cfg: SlamConfig, map_cfgs,
+                 first_frame: bool):
+    dev = state.pose.device
+    # in-graph constant-velocity extrapolation (Slam.cxx:821-836)
+    Rw, tw = undistortion.jinterpolate_pose(state.prev_pose, state.pose, stamp,
+                                            state.t_prev, state.t_cur,
+                                            cfg.max_extrapolation_ratio)
+    trel = _relative_pose(state.pose, se3.jrt_to_pose(Rw, tw))
+    trel = torch.where(state.n_frames >= 2, trel, 0.0)
+
+    inp = FrameInputs(
+        trel_prior=trel, prev_pose=state.pose, stamp=stamp, az_resolution=az_res,
+        kf_last_pose=state.kf_pose, kf_counter=state.kf_counter,
+        map_update=state.map_update, submap_cache=state.submap_cache,
+        cache_stale=state.cache_stale)
+    res = process_keypoints(kps, state.maps, inp, cfg, map_cfgs, first_frame,
+                            sync_free=True)
+
+    res_m = voxel_map.effective_resolution(map_cfgs[int(cfg.used_types[0])])
+    shift = torch.cat([res.roll_offset.to(torch.float32) * res_m,
+                       torch.zeros(3, dtype=torch.float32, device=dev)])
+    origin_vox = state.origin_vox + res.roll_offset
+    new_state = StreamState(
+        maps=res.maps,
+        prev_keypoints=res.keypoints,
+        pose=res.pose - shift,
+        prev_pose=state.pose - shift,
+        t_cur=stamp.to(torch.float32),
+        t_prev=state.t_cur,
+        kf_pose=torch.where(res.is_keyframe, res.pose, state.kf_pose) - shift,
+        kf_counter=state.kf_counter + res.is_keyframe.to(torch.int32),
+        origin_vox=origin_vox,
+        n_frames=state.n_frames + 1,
+        map_update=state.map_update,
+        submap_cache=res.submap_cache,
+        cache_stale=res.cache_stale)
+    packed = torch.cat([res.packed, origin_vox.to(torch.float32)])
+    kps_flat = tuple(flatten_keypoints(kp) for kp in res.keypoints)
+    return new_state, packed, kps_flat
+
+
+def window_frame(ri_stack, w: int):
+    """Sweep `w` of a window-stacked wire (views, no copy)."""
+    if isinstance(ri_stack, FlatRangeImage):
+        return FlatRangeImage(*(getattr(ri_stack, f)[w] for f in FlatRangeImage.FIELDS),
+                              ri_stack.shape)
+    return type(ri_stack)(*(a[w] for a in ri_stack))
+
+
+def process_stream_window(ri_stack, state: StreamState, stamps, az_res,
+                          cfg: SlamConfig, map_cfgs: tuple):
+    """W chained streaming steps over a leading-axis-W stack of sweeps
+    (`frame.stack_range_images`), the exact per-frame step each time — the
+    JAX package's `lax.scan` as a loop. Returns (state', packed (W, 67),
+    kps_flat — per type (W, 7K+1))."""
+    packed, kps_flat = [], []
+    for w in range(stamps.shape[0]):
+        state, p, k = process_frame_stream(window_frame(ri_stack, w), state, stamps[w],
+                                           az_res, cfg, map_cfgs, False)
+        packed.append(p)
+        kps_flat.append(k)
+    return state, torch.stack(packed), tuple(torch.stack(k) for k in zip(*kps_flat))
+
+
+def init_stream_state(cfg: SlamConfig, map_cfgs, device) -> StreamState:
+    """A fresh segment's state: empty maps, zero poses, stale submaps."""
+    def z(shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return StreamState(
+        maps=tuple(voxel_map.VoxelMap.empty(map_cfgs[i], device)
+                   if cfg.use_keypoints(Keypoint(i)) else None for i in range(3)),
+        prev_keypoints=tuple(Keypoints.empty(cfg.extractor.kp_capacity(i), device)
+                             for i in range(3)),
+        pose=z(6), prev_pose=z(6), t_cur=z(()), t_prev=z(()), kf_pose=z(6),
+        kf_counter=z((), torch.int32), origin_vox=z(3, torch.int32),
+        n_frames=z((), torch.int32),
+        map_update=torch.full((), cfg.mapping_mode != 0, dtype=torch.bool, device=device),
+        submap_cache=init_submap_cache(cfg, map_cfgs, device),
+        cache_stale=torch.ones((), dtype=torch.bool, device=device))
+
+
+def seed_stream_state(maps: tuple, pose, prev_pose, t_cur, t_prev, kf_pose,
+                      kf_counter, origin_vox, n_frames, map_update,
+                      cfg: SlamConfig, map_cfgs: tuple, device) -> StreamState:
+    """A segment's state from host state (numpy poses, Python scalars); the
+    maps are copied, so the host's map tensors stay its own."""
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+    f32 = torch.float32
+    st = init_stream_state(cfg, map_cfgs, device)
+    return st._replace(
+        maps=tuple(None if m is None else voxel_map.VoxelMap(*(a.clone() for a in m))
+                   for m in maps),
+        pose=t(pose, f32), prev_pose=t(prev_pose, f32), t_cur=t(t_cur, f32),
+        t_prev=t(t_prev, f32), kf_pose=t(kf_pose, f32),
+        kf_counter=t(kf_counter, torch.int32), origin_vox=t(origin_vox, torch.int32),
+        n_frames=t(n_frames, torch.int32), map_update=t(map_update, torch.bool))

@@ -41,8 +41,8 @@ def spread_k_indices(mask, capacity: int):
     flat = mask.reshape(-1)
     rank = torch.cumsum(flat.to(torch.int32), dim=0)
     count = rank[-1]
-    ratio = torch.tensor(float(capacity), dtype=torch.float32,
-                         device=mask.device) / torch.clamp(count, min=1).to(torch.float32)
+    ratio = torch.full((), float(capacity), dtype=torch.float32,
+                       device=mask.device) / torch.clamp(count, min=1).to(torch.float32)
     bkt = torch.floor(rank.to(torch.float32) * ratio)
     bkt_prev = torch.floor((rank - 1).to(torch.float32) * ratio)
     thinned = flat & (bkt != bkt_prev)

@@ -11,7 +11,8 @@
   (`SolverConfig.lm_unroll`), equivalent to its `while_loop` — so it costs
   no host sync per LM step. `n_success` starts at 1 (the initial
   evaluation), for the ICP early exit on `n_success == 1`;
-- pose covariance = pseudo-inverse of the robust Gauss-Newton Hessian.
+- pose covariance = pseudo-inverse of the robust Gauss-Newton Hessian,
+  by a fixed-sweep Jacobi eigendecomposition (no host sync).
 
 The JAX package pins the match blocks with `lax.optimization_barrier` so XLA
 does not sink the matcher into the LM loop; eager PyTorch evaluates them
@@ -100,9 +101,6 @@ class LMResult(NamedTuple):
     H: torch.Tensor           # (6, 6) robust GN Hessian at the solution
 
 
-_FREE_MASK_2D = (1.0, 1.0, 0.0, 0.0, 0.0, 1.0)
-
-
 def robust_lm(blocks: Sequence[Matches], pose0, saturation, cfg: SolverConfig,
               lm_max_iter: int, extras=()) -> LMResult:
     """LM minimization of the robustified match cost starting at pose0."""
@@ -114,11 +112,14 @@ def robust_lm(blocks: Sequence[Matches], pose0, saturation, cfg: SolverConfig,
     dev = pose0.device
     cost, H, g = _evaluate(b, pose0, saturation)
     pose = pose0
-    lam = torch.tensor(cfg.initial_lm_lambda, dtype=pose0.dtype, device=dev)
+    lam = torch.full((), cfg.initial_lm_lambda, dtype=pose0.dtype, device=dev)
     nsucc = torch.ones((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
-    free = torch.tensor(_FREE_MASK_2D, dtype=pose0.dtype, device=dev) \
-        if cfg.two_d_mode else None
+    free = None
+    if cfg.two_d_mode:
+        # x, y, yaw free; z, roll, pitch held (filled in on the device)
+        free = torch.ones(6, dtype=pose0.dtype, device=dev)
+        free[2:5] = 0.0
     for _ in range(lm_max_iter):
         D = torch.clamp(torch.diagonal(H), min=1e-12)
         Hd = H + lam * torch.diag(D)
@@ -146,8 +147,59 @@ def robust_lm(blocks: Sequence[Matches], pose0, saturation, cfg: SolverConfig,
 
 
 def pose_covariance(H):
-    """6x6 pose covariance = pseudo-inverse of the robust GN Hessian."""
-    return torch.linalg.pinv(H, rtol=1e-10, hermitian=True)
+    """6x6 pose covariance = pseudo-inverse of the robust GN Hessian, with
+    the JAX package's cutoff (eigenvalues within 1e-10 of the largest count
+    as zero).
+
+    The eigendecomposition is `_jacobi_eigh6`, in tensor ops only:
+    `torch.linalg.pinv` reads its eigensolver's error flag on the host,
+    which would stall the streaming step and break its CUDA-graph capture."""
+    lam, V = _jacobi_eigh6(H)
+    keep = torch.abs(lam) > 1e-10 * torch.amax(torch.abs(lam))
+    inv = torch.where(keep, 1.0 / torch.where(keep, lam, 1.0), 0.0)
+    return (V * inv) @ V.T
+
+
+# circle-method round robin over 6 indices: 5 rounds of 3 disjoint pairs
+# cover all 15 pairs once; each round lists its pairs as (p0 q0 p1 q1 p2 q2)
+_ROUND_ROBIN = ((0, 1, 2, 5, 3, 4), (0, 2, 3, 1, 4, 5), (0, 3, 4, 2, 5, 1),
+                (0, 4, 5, 3, 1, 2), (0, 5, 1, 4, 2, 3))
+JACOBI_SWEEPS = 5   # float32-converged on 6x6 Hessians (cond up to ~1e6)
+
+
+def _jacobi_eigh6(A):
+    """Eigenvalues (6,) and eigenvectors (columns of V) of a symmetric 6x6
+    matrix by cyclic Jacobi: a fixed number of sweeps, each 5 rounds of 3
+    disjoint plane rotations applied as one 6x6 orthogonal matrix. Only
+    tensor ops, no host read. Unordered eigenvalues (pinv needs none)."""
+    dev, dt = A.device, A.dtype
+    eye = torch.eye(6, dtype=dt, device=dev)
+    # row-permutation matrices moving round r's pairs to (0,1) (2,3) (4,5)
+    perms = torch.stack([eye[i] for order in _ROUND_ROBIN for i in order]).reshape(5, 6, 6)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    V = eye
+    for _ in range(JACOBI_SWEEPS):
+        for r in range(5):
+            P = perms[r]
+            Ap = P @ A @ P.T
+            app = torch.diagonal(Ap[0::2, 0::2])
+            aqq = torch.diagonal(Ap[1::2, 1::2])
+            apq = torch.diagonal(Ap[0::2, 1::2])
+            # the rotation that zeroes apq (Numerical Recipes 11.1)
+            zero = apq == 0.0
+            theta = (aqq - app) / (2.0 * torch.where(zero, 1.0, apq))
+            sgn = torch.where(theta >= 0.0, 1.0, -1.0)
+            t = sgn / (torch.abs(theta) + torch.sqrt(theta * theta + 1.0))
+            t = torch.where(zero, 0.0, t)
+            c = torch.rsqrt(t * t + 1.0)
+            s = t * c
+            blocks = torch.stack([torch.stack([c, s], dim=-1),
+                                  torch.stack([-s, c], dim=-1)], dim=-2)
+            G = torch.einsum("ij,iab->iajb", eye3, blocks).reshape(6, 6)
+            Q = P.T @ G @ P
+            A = Q.T @ A @ Q
+            V = V @ Q
+    return torch.diagonal(A), V
 
 
 class RegistrationError(NamedTuple):

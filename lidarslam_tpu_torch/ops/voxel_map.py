@@ -74,6 +74,15 @@ def half_extent(cfg: MapConfig) -> float:
     return cfg.grid_size / 2.0 * effective_resolution(cfg)
 
 
+def _device_f32(x, device):
+    """A float32 tensor of `x` on `device`: a tensor is converted in place
+    on its device, a host number filled in on the device (no host->device
+    copy, so it is safe inside a captured CUDA graph)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
 def _check_sampling(mode):
     if mode not in (SamplingMode.FIRST, SamplingMode.LAST, SamplingMode.MAX_INTENSITY):
         raise NotImplementedError(
@@ -158,8 +167,7 @@ def add_points(vmap_: VoxelMap, new_xyz, new_intensity, new_time, new_valid,
     y = torch.cat([vmap_.xyz[:, 1], by])
     z = torch.cat([vmap_.xyz[:, 2], bz])
     inten = torch.cat([vmap_.intensity, bint])
-    new_t = torch.as_tensor(new_time, dtype=torch.float32, device=dev)
-    tim = torch.cat([vmap_.time, new_t.expand(K)])
+    tim = torch.cat([vmap_.time, _device_f32(new_time, dev).expand(K)])
     cnt = torch.cat([vmap_.count, torch.zeros((K,), dtype=torch.int32, device=dev)])
     fix = torch.cat([vmap_.fixed, torch.full((K,), bool(fixed), device=dev)]).to(torch.int32)
     is_new = (torch.arange(N, device=dev) >= M).to(torch.int32)
@@ -199,7 +207,7 @@ def add_points(vmap_: VoxelMap, new_xyz, new_intensity, new_time, new_valid,
     has_fixed_old = ((sfix == 1) & (snew == 0)) | (l_old & (nxt(sfix, 0) == 1))
     touched = winner & any_new & ~has_fixed_old
 
-    cur_t = torch.as_tensor(current_time, dtype=torch.float32, device=dev)
+    cur_t = _device_f32(current_time, dev)
     out_time = torch.where(touched, cur_t, stim)
     out_fix = torch.where(touched, int(fixed), sfix)
     out_cnt = torch.where(touched, old_cnt + 1, scnt)

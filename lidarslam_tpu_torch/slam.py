@@ -1,9 +1,17 @@
-"""SLAM orchestrator, synchronous subset (PyTorch port of
-`lidarslam_tpu/slam.py`).
+"""SLAM orchestrator (PyTorch port of `lidarslam_tpu/slam.py`, single-LiDAR
+subset).
 
 `Slam.add_frame` runs one sweep through `ops/pipeline.process_frame` on the
 Slam's device and keeps the float64 pose bookkeeping, the trajectory log and
 the rolling-map origin on the host, as the JAX package does.
+
+Streaming (`add_frame_async` + `flush`) chains the device `StreamState` from
+sweep to sweep with no host sync until `flush`, with the JAX package's
+segment rules: a segment's first sweep and a partial window at `flush` run
+per sweep, full windows of `cfg.stream_window` sweeps as one upload, a
+flush ends the segment and the next one is seeded from the host's float64
+state. On CUDA every steady-state sweep is a replay of one captured CUDA
+graph (`ops/stream_graph.py`); on the CPU the same step runs eagerly.
 
 Coordinate frames:
 - BASE: sensor platform frame of the current sweep (keypoints live here).
@@ -12,8 +20,9 @@ Coordinate frames:
   MAP-frame float32. The origin is shared by all keypoint maps and advances
   by whole rolling-grid voxels.
 
-Streaming (`add_frame_async`/`flush`), multi-LiDAR, pose-graph optimization,
-checkpoints and the debug surface are not ported yet (ROADMAP.md).
+Multi-LiDAR (and its streaming step), pose-graph optimization, keypoint
+logs, motion-limit checks, sensor constraints, checkpoints and the debug
+surface are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,9 +38,12 @@ import torch
 from lidarslam_tpu_torch.config import (KEYPOINT_NAMES, EgoMotionMode, Keypoint,
                                        MappingMode, SlamConfig)
 from lidarslam_tpu_torch.core import se3
-from lidarslam_tpu_torch.ops import pipeline, voxel_map
-from lidarslam_tpu_torch.ops.frame import (build_range_image, ensure_range_image,
-                                           estimate_azimuthal_resolution)
+from lidarslam_tpu_torch.ops import pipeline, stream_graph, voxel_map
+from lidarslam_tpu_torch.ops.frame import (KeypointsView, build_range_image,
+                                           ensure_range_image,
+                                           estimate_azimuthal_resolution,
+                                           flatten_packed, stack_range_images,
+                                           to_device_range_image)
 
 
 def _shared_resolution(cfg: SlamConfig) -> float:
@@ -49,10 +61,11 @@ def _shared_resolution(cfg: SlamConfig) -> float:
 
 
 class Slam:
-    """The public SLAM engine API, synchronous per-sweep subset.
+    """The public SLAM engine API, single-LiDAR subset: `add_frame` per
+    sweep, or `add_frame_async` + `flush` streaming.
 
-    `device` has no default: "cuda" runs the k-NN kernel, "cpu" the plain
-    PyTorch versions."""
+    `device` has no default: "cuda" runs the k-NN kernel (and replays the
+    streaming step as a CUDA graph), "cpu" the plain PyTorch versions."""
 
     def __init__(self, config: Optional[SlamConfig] = None, *, device):
         self.cfg = config or SlamConfig()
@@ -73,6 +86,7 @@ class Slam:
             dataclasses.replace(cfg.map_config(Keypoint(i)), voxel_resolution=shared_res)
             for i in range(3))
         self.map_cfgs = {k: self._map_cfgs_tuple[int(k)] for k in cfg.used_types}
+        self._graph = None   # stream_graph.StreamGraph, built at first use on CUDA
         self.reset()
 
     # ------------------------------------------------------------------
@@ -99,8 +113,14 @@ class Slam:
         self.last_stamp = None
         self.last_seq = None
         self.failure = False
+        self.current_keypoints = {}     # per type, KeypointsView after a flush
         self._device_keypoints = None   # previous sweep's Keypoints (device)
         self._maps_populated = False    # host-side: any map has points
+        self._prefetched = None         # (stamp, wire) of add_frame's next_frame
+        self._stream_state = None       # StreamState while a segment is open
+        self._stream_pending = []       # enqueued results not yet flushed
+        self._window_buf = []           # host sweeps of the filling window
+        self._stream_enqueued = 0
         self._invalidate_submaps()
         if reset_log:
             self.n_frames = 0
@@ -117,17 +137,23 @@ class Slam:
     # Main entry
     # ------------------------------------------------------------------
 
-    def add_frame(self, frame: dict) -> dict:
+    def add_frame(self, frame: dict, next_frame: dict = None) -> dict:
         """Process one sweep (Slam::AddFrames single-LiDAR path).
 
         `frame` is a dict with arrays xyz (n,3), intensity, laser_id, time
-        and scalar `stamp` [s] (+ optional `seq`). Returns a summary dict."""
+        and scalar `stamp` [s] (+ optional `seq`). Pass the upcoming sweep as
+        `next_frame` to build and upload its wire right after this sweep's
+        step is issued. Returns a summary dict."""
         t0 = _time.perf_counter()
         skip = self._check_frame(frame)
         if skip:
             return skip
         stamp = float(frame["stamp"])
-        ri = self._build_ri(frame)
+        pre, self._prefetched = self._prefetched, None
+        if pre is not None and pre[0] == frame.get("stamp"):
+            ri = pre[1]
+        else:
+            ri = self._build_ri(frame)
         if self.azimuthal_resolution <= 1e-6 or self.azimuthal_resolution > np.pi / 4:
             self.azimuthal_resolution = float(
                 estimate_azimuthal_resolution(ensure_range_image(ri)))
@@ -137,16 +163,238 @@ class Slam:
         maps_in = tuple(self.maps.get(Keypoint(i)) for i in range(3))
         res = pipeline.process_frame(ri, maps_in, inp, self.cfg, self._map_cfgs_tuple,
                                      first)
+        if next_frame is not None and next_frame.get("xyz") is not None \
+                and len(next_frame["xyz"]) > 0:
+            self._prefetched = (next_frame["stamp"], self._build_ri(next_frame))
         out = self._apply_result(res, stamp, t0)
         self.last_stamp = frame["stamp"]
         return out
 
-    def _build_ri(self, frame):
+    def _build_ri(self, frame, device=None):
+        """The sweep's wire on the Slam's device; `device=False`: the host
+        PackedRangeImage of a window sweep."""
         cfg = self.cfg
         return build_range_image(frame["xyz"], frame["intensity"], frame["laser_id"],
                                  frame["time"], cfg.extractor.n_rings,
                                  cfg.extractor.max_ring_points,
-                                 packed=cfg.compress_upload, device=self.device)
+                                 packed=cfg.compress_upload,
+                                 device=self.device if device is None else device)
+
+    # ------------------------------------------------------------------
+    # Streaming (device-chained) mode: no host sync until flush
+    # ------------------------------------------------------------------
+
+    def add_frame_async(self, frame: dict) -> int:
+        """Enqueue one sweep in streaming mode; returns its frame index (-1
+        when skipped).
+
+        The ego-motion prior, the keyframe gate and the rolling origin
+        advance on the device, so nothing synchronizes with the host until
+        `flush()`, which fills the logs and returns the results. Mixing with
+        `add_frame` is allowed across a flush. Sweeps buffer on the host
+        and every `cfg.stream_window` of them go up in one upload."""
+        self._check_stream_supported()
+        skip = self._check_frame(frame)
+        if skip:
+            return -1
+        stamp = float(frame["stamp"])
+        self._ensure_stream_state()
+        first = not self._maps_populated and self._stream_enqueued == 0 \
+            and self.n_frames == 0
+        # until a valid azimuthal-resolution estimate exists (the first
+        # sweep against preloaded maps) sweeps take the per-frame path,
+        # which estimates it
+        az_invalid = (self.azimuthal_resolution <= 1e-6
+                      or self.azimuthal_resolution > np.pi / 4)
+        # on CUDA every steady-state sweep replays the graph, so a window of
+        # one is still a window
+        if not first and not az_invalid and (self.cfg.stream_window > 1
+                                              or self._graph is not None):
+            self._window_buf.append((self._build_ri(frame, device=False), stamp))
+            if len(self._window_buf) >= self.cfg.stream_window:
+                self._dispatch_window()
+        else:
+            # any buffered partial window runs first, to keep frame order
+            self._drain_window()
+            ri = self._build_ri(frame)
+            if az_invalid:
+                self.azimuthal_resolution = float(
+                    estimate_azimuthal_resolution(ensure_range_image(ri)))
+            if self._graph is not None:
+                self._graph.set_az(self.azimuthal_resolution)
+                packed, kps_flat = self._graph.eager_step(ri, stamp, first)
+            else:
+                self._stream_state, packed, kps_flat = pipeline.process_frame_stream(
+                    ri, self._stream_state, self._f32(stamp),
+                    self._f32(self.azimuthal_resolution), self.cfg,
+                    self._map_cfgs_tuple, first)
+            self._stream_pending.append({"stamps": [stamp], "packed": packed,
+                                         "kps_flat": kps_flat})
+        self.last_stamp = frame["stamp"]
+        idx = self._stream_enqueued
+        self._stream_enqueued += 1
+        return idx
+
+    def _f32(self, x) -> torch.Tensor:
+        return torch.full((), float(np.float32(x)), dtype=torch.float32,
+                          device=self.device)
+
+    def _check_stream_supported(self):
+        """Raise where the config asks streaming for what is not ported."""
+        cfg = self.cfg
+        if cfg.confidence.time_window_duration > 0:
+            raise NotImplementedError("motion-limit checks (comply_motion_limits) "
+                                      "are not ported yet (ROADMAP.md, Queue 1)")
+        if cfg.wheel_odom_weight > 0 or cfg.imu_weight > 0:
+            raise NotImplementedError("sensor constraints in the stream are not "
+                                      "ported yet (ROADMAP.md, Queue 1)")
+        if not cfg.compress_upload:
+            raise NotImplementedError("streaming takes the quantized wire "
+                                      "(compress_upload=True) only")
+
+    def _dispatch_window(self):
+        """Run the buffered sweeps (a full window, or a partial one at
+        flush on CUDA) in order: on CUDA one upload of their flat-wire
+        records and one graph replay each, on the CPU the eager window."""
+        buf, self._window_buf = self._window_buf, []
+        cfg = self.cfg
+        stamps = [s for _, s in buf]
+        if self._graph is not None:
+            wire = self._graph.wire
+            records = wire.pack([flatten_packed(r, wire.capacity) for r, _ in buf], stamps)
+            packed, kps_flat = self._graph.run(records.to(self.device, non_blocking=True))
+        else:
+            ris = [r for r, _ in buf]
+            if cfg.flat_wire:
+                ris = [flatten_packed(r, cfg.wire_capacity) for r in ris]
+            self._stream_state, packed, kps_flat = pipeline.process_stream_window(
+                stack_range_images(ris, self.device), self._stream_state,
+                torch.tensor(stamps, dtype=torch.float32, device=self.device),
+                self._f32(self.azimuthal_resolution), cfg, self._map_cfgs_tuple)
+        self._stream_pending.append({"stamps": stamps, "packed": packed,
+                                     "kps_flat": kps_flat})
+
+    def _drain_window(self):
+        """Run a buffered partial window sweep by sweep (on CUDA: graph
+        replays of one upload; on the CPU: the per-frame step on each
+        sweep's dense planes, as the JAX package does)."""
+        if not self._window_buf:
+            return
+        if self._graph is not None:
+            self._dispatch_window()
+            return
+        buf, self._window_buf = self._window_buf, []
+        for ri_host, stamp in buf:
+            self._stream_state, packed, kps_flat = pipeline.process_frame_stream(
+                to_device_range_image(ri_host, self.device), self._stream_state,
+                self._f32(stamp), self._f32(self.azimuthal_resolution), self.cfg,
+                self._map_cfgs_tuple, False)
+            self._stream_pending.append({"stamps": [stamp], "packed": packed,
+                                         "kps_flat": kps_flat})
+
+    def _ensure_stream_state(self):
+        """Open a segment: the device stream state, seeded from the host
+        state when there is one (previous segment, add_frame, loaded
+        state), fresh otherwise."""
+        if self._stream_state is not None:
+            return
+        cfg = self.cfg
+        self._stream_pending = []
+        self._window_buf = []
+        self._stream_enqueued = 0
+        if self._maps_populated or self.n_frames > 0:
+            res_m = voxel_map.effective_resolution(
+                self._map_cfgs_tuple[int(cfg.used_types[0])])
+            rel, prev_rel, kf_rel = (H.copy() for H in
+                                     (self.Tworld, self.PreviousTworld, self.kf_last_pose))
+            for H in (rel, prev_rel, kf_rel):
+                H[:3, 3] -= self.map_origin
+            t_cur = self.log_trajectory[-1]["time"] if self.log_trajectory else 0.0
+            t_prev = self.log_trajectory[-2]["time"] if len(self.log_trajectory) > 1 \
+                else t_cur
+            state = pipeline.seed_stream_state(
+                tuple(self.maps.get(Keypoint(i)) for i in range(3)),
+                se3.hmat_to_pose(rel).astype(np.float32),
+                se3.hmat_to_pose(prev_rel).astype(np.float32),
+                np.float32(t_cur), np.float32(t_prev),
+                se3.hmat_to_pose(kf_rel).astype(np.float32), self.kf_counter,
+                np.round(self.map_origin / res_m).astype(np.int32),
+                max(self.n_frames, 1), self.mapping_mode != MappingMode.NONE,
+                cfg, self._map_cfgs_tuple, self.device)
+        else:
+            state = pipeline.init_stream_state(cfg, self._map_cfgs_tuple, self.device)
+            state = state._replace(map_update=torch.full(
+                (), self.mapping_mode != MappingMode.NONE, dtype=torch.bool,
+                device=self.device))
+        if self.device.type == "cuda":
+            if self._graph is None:
+                ecfg = cfg.extractor
+                cap = (cfg.wire_capacity if cfg.flat_wire else 0) \
+                    or ecfg.n_rings * ecfg.max_ring_points
+                self._graph = stream_graph.StreamGraph(
+                    cfg, self._map_cfgs_tuple, self.device,
+                    stream_graph.WireRecord(ecfg.n_rings, ecfg.max_ring_points, cap))
+            self._graph.seed(state, self.azimuthal_resolution)
+            state = self._graph.state
+        self._stream_state = state
+
+    def flush(self) -> list:
+        """Bring the streamed results to the host (one transfer) and into
+        the logs; returns the per-frame summary dicts of the flushed frames.
+        Ends the segment."""
+        self._drain_window()
+        if not self._stream_pending:
+            return []
+        cfg = self.cfg
+        n_packed = pipeline.PACKED_LEN + 3
+        res_m = voxel_map.effective_resolution(self._map_cfgs_tuple[int(cfg.used_types[0])])
+        rows = torch.cat([e["packed"].reshape(-1, n_packed)
+                          for e in self._stream_pending]).cpu().numpy()
+        # the segment's maps and last keypoints, copied out of the state (on
+        # CUDA the graph's buffers, which the next segment overwrites)
+        self.maps = {k: stream_graph.clone_tree(self._stream_state.maps[int(k)])
+                     for k in cfg.used_types}
+        self._device_keypoints = stream_graph.clone_tree(self._stream_state.prev_keypoints)
+        outs = []
+        r = 0
+        for entry in self._stream_pending:
+            windowed = entry["packed"].dim() == 2
+            for w, stamp in enumerate(entry["stamps"]):
+                packed = rows[r]
+                r += 1
+                u = pipeline.unpack_scalars(packed[:pipeline.PACKED_LEN])
+                origin_after_vox = packed[pipeline.PACKED_LEN:n_packed].astype(np.int64)
+                origin_before = (origin_after_vox - u["roll_offset"]).astype(np.float64) * res_m
+                Tnew = se3.pose_to_hmat(u["pose"])
+                Tnew[:3, 3] += origin_before
+                self.PreviousTworld = self.Tworld.copy()
+                self.Tworld = Tnew
+                self.covariance = u["cov"]
+                self.failure = u["failed"]
+                self.total_matched_keypoints = u["total"]
+                if u["is_kf"]:
+                    self.kf_counter += 1
+                    self.kf_last_pose = self.Tworld.copy()
+                    self._maps_populated = True
+                self.map_origin = origin_after_vox.astype(np.float64) * res_m
+                self._update_map_overflow(u["map_overflow"])
+                # lazy views over the per-frame log buffers: nothing moves to
+                # the host unless a consumer reads them
+                self.current_keypoints = {
+                    Keypoint(i): KeypointsView(entry["kps_flat"][i],
+                                               row=w if windowed else None)
+                    for i in range(3)}
+                self._log_state(stamp)
+                self.n_frames += 1
+                outs.append({"pose": self.Tworld.copy(),
+                             "covariance": self.covariance.copy(),
+                             "n_matches": int(u["total"]), "failure": u["failed"],
+                             "kp_counts": u["kp_counts"]})
+        self._stream_pending = []
+        # the host is the source of truth again; the next segment re-seeds
+        self._stream_state = None
+        self._invalidate_submaps()
+        return outs
 
     def _check_frame(self, frame):
         if frame["xyz"] is None or len(frame["xyz"]) == 0:

@@ -17,6 +17,11 @@ State dict keys:
 - optional "submap_selected": {type: (M,) bool} and "cache_stale": the
   lazily rebuilt submap selection, so the next sweep matches against the
   same submap as the exporting engine would.
+
+`stream_state_from_numpy` does the same for the streaming mode's device
+state: a `StreamState` of the JAX package pulled to numpy (for example with
+`jax.tree.map(np.asarray, state)`) becomes the port's, so both engines can
+step the same next sweep from the same mid-sequence state.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 from lidarslam_tpu_torch.config import Keypoint
 from lidarslam_tpu_torch.ops import voxel_map
 from lidarslam_tpu_torch.ops.frame import Keypoints
-from lidarslam_tpu_torch.ops.pipeline import SubmapCache
+from lidarslam_tpu_torch.ops.pipeline import StreamState, SubmapCache
 
 _MAP_DTYPES = {"xyz": torch.float32, "intensity": torch.float32,
                "time": torch.float32, "count": torch.int32,
@@ -100,3 +105,34 @@ def load_numpy_state(slam, state: dict):
                                     index=voxel_map.prepare_knn_index(view))
         slam._submap_cache = tuple(cache)
         slam._cache_stale = bool(state.get("cache_stale", True))
+
+
+def stream_state_from_numpy(st, device) -> StreamState:
+    """The port's StreamState on `device` from a streaming state whose leaves
+    are numpy arrays, with the JAX package's field names (`maps`,
+    `prev_keypoints`, `submap_cache` of (`selected`, ...), the scalars).
+    Each cached submap selection gets the k-NN kernel's map index anew."""
+    maps = tuple(None if m is None else voxel_map_from_numpy(
+        {f: getattr(m, f) for f in voxel_map.VoxelMap._fields}, device) for m in st.maps)
+    kps = tuple(keypoints_from_numpy({f: getattr(k, f) for f in Keypoints._fields}, device)
+                for k in st.prev_keypoints)
+    caches = []
+    for m, c in zip(maps, st.submap_cache):
+        if c is None:
+            caches.append(None)
+            continue
+        sel = _tensor(c.selected, torch.bool, device)
+        view = voxel_map.SubmapView(xyz=m.xyz, ring=None, valid=sel)
+        caches.append(SubmapCache(selected=sel, index=voxel_map.prepare_knn_index(view)))
+    f32 = torch.float32
+    return StreamState(
+        maps=maps, prev_keypoints=kps,
+        pose=_tensor(st.pose, f32, device), prev_pose=_tensor(st.prev_pose, f32, device),
+        t_cur=_tensor(st.t_cur, f32, device), t_prev=_tensor(st.t_prev, f32, device),
+        kf_pose=_tensor(st.kf_pose, f32, device),
+        kf_counter=_tensor(st.kf_counter, torch.int32, device),
+        origin_vox=_tensor(st.origin_vox, torch.int32, device),
+        n_frames=_tensor(st.n_frames, torch.int32, device),
+        map_update=_tensor(st.map_update, torch.bool, device),
+        submap_cache=tuple(caches),
+        cache_stale=_tensor(st.cache_stale, torch.bool, device))

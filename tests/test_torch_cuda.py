@@ -13,7 +13,7 @@ from lidarslam_tpu_torch import Slam
 from lidarslam_tpu_torch.config import (ExtractorConfig, MapConfig, MatchingConfig,
                                         SlamConfig)
 from lidarslam_tpu_torch.io import synthetic
-from lidarslam_tpu_torch.ops import cuda_knn
+from lidarslam_tpu_torch.ops import cuda_knn, stream_graph
 from lidarslam_tpu_torch.ops import voxel_map as tvm
 
 RADIUS = 5.0   # the matcher's neighbour gate, used as the kernel's prune radius
@@ -111,4 +111,51 @@ def test_cuda_slice_matches_cpu_slice(cuda):
         assert np.linalg.norm(a["pose"][:3, 3] - b["pose"][:3, 3]) < 0.01
         dR = b["pose"][:3, :3].T @ a["pose"][:3, :3]
         assert np.rad2deg(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))) < 5.0
+        assert abs(a["n_matches"] - b["n_matches"]) <= 0.01 * max(b["n_matches"], 1)
+
+
+def _small_stream_cfg():
+    return SlamConfig(
+        extractor=ExtractorConfig(n_rings=16, max_ring_points=1024, max_keypoints=1024),
+        edge_map=MapConfig(leaf_size=0.30, capacity=1 << 15, grid_size=26),
+        plane_map=MapConfig(leaf_size=0.60, capacity=1 << 15, grid_size=26),
+        blob_map=MapConfig(leaf_size=0.30, capacity=1 << 15, grid_size=26),
+        loc_matching=MatchingConfig(reuse_knn=True), stream_window=4)
+
+
+def _stream(slam, frames, split):
+    outs = []
+    for i, f in enumerate(frames):
+        if i == split:
+            outs += slam.flush()
+        assert slam.add_frame_async(f) == (i if split is None or i < split else i - split)
+    return outs + slam.flush()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [None, 5])
+def test_cuda_stream_replays_graph_and_matches_cpu(cuda, split):
+    """The stream on the card (CUDA-graph replays) against the same stream
+    on the CPU (eager), in one segment and across a flush: the second
+    segment is seeded into the graph's own buffers (copy_, same storage)."""
+    cfg = _small_stream_cfg()
+    frames = synthetic.generate_sequence(
+        n_frames=10, motion_distortion=False,
+        sensor=synthetic.SensorModel(range_noise=0.005))
+    gpu, cpu = Slam(cfg, device=cuda), Slam(cfg, device="cpu")
+    if split is None:
+        rg = _stream(gpu, frames, None)
+    else:
+        rg = _stream(gpu, frames[:split], None)
+        g = gpu._graph
+        ptrs = [t.data_ptr() for t in stream_graph._leaves(g.state)]
+        rg += _stream(gpu, frames[split:], None)
+        assert gpu._graph is g
+        assert [t.data_ptr() for t in stream_graph._leaves(g.state)] == ptrs
+    rc = _stream(cpu, frames, split)
+    assert gpu._graph.graph is not None            # steady state was replayed
+    assert len(rg) == len(rc) == len(frames)
+    for a, b in zip(rg, rc):
+        assert not a["failure"] and not b["failure"]
+        assert np.linalg.norm(a["pose"][:3, 3] - b["pose"][:3, 3]) < 0.01
         assert abs(a["n_matches"] - b["n_matches"]) <= 0.01 * max(b["n_matches"], 1)

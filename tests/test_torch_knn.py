@@ -59,6 +59,36 @@ def test_plain_missing_neighbours_and_dead_queries():
     assert np.isinf(d2[~live]).all() and (idx[~live] == 0).all() and (nbr[~live] == 0).all()
 
 
+@pytest.mark.parametrize("M", [7, cuda_knn.PLAIN_CHUNK + 900, 2 * cuda_knn.PLAIN_CHUNK])
+def test_plain_ties_go_to_the_lower_slot(M):
+    """On an integer grid with duplicated points (many equal d2), across
+    chunk boundaries: plain_knn is the (d2, slot) order of a numpy lexsort."""
+    rng = np.random.default_rng(M)
+    xyz = np.round(rng.normal(0, 3, (M, 3))).astype(np.float32)
+    xyz[M // 2:M // 2 + 3] = xyz[:3]
+    valid = rng.uniform(size=M) < 0.7
+    queries = (np.round(rng.normal(0, 3, (40, 3))) + 0.5 * (rng.uniform(size=(40, 1)) < 0.5)
+               ).astype(np.float32)
+    q_valid = rng.uniform(size=40) < 0.8
+    k = 10
+    d2, idx, nbr = (a.numpy() for a in cuda_knn.plain_knn(
+        torch.from_numpy(xyz), torch.from_numpy(valid), torch.from_numpy(queries), k,
+        q_valid=torch.from_numpy(q_valid)))
+    diff = queries[:, None, :] - xyz[None, :, :]
+    want = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+    want = np.where(valid[None, :], want + diff[..., 2] * diff[..., 2], np.inf)
+    for q in range(40):
+        order = np.lexsort((np.arange(M), want[q]))[:k]
+        wd = np.full(k, np.inf, np.float32)
+        wi = np.zeros(k, np.int32)
+        if q_valid[q]:
+            n = min(k, int(np.isfinite(want[q]).sum()))
+            wd[:n], wi[:n] = want[q][order[:n]], order[:n]
+        np.testing.assert_array_equal(d2[q], wd)
+        np.testing.assert_array_equal(idx[q], wi)
+        np.testing.assert_array_equal(nbr[q], np.where(np.isfinite(wd)[:, None], xyz[wi], 0.0))
+
+
 def _rank_agreement(a, b):
     return float((a == b).mean())
 

@@ -6,6 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from lidarslam_tpu import Slam as JSlam
 from lidarslam_tpu.config import MatchingConfig as JMatching
@@ -20,6 +21,17 @@ N_FRAMES = 8
 STATE_AFTER = 5
 # the reference CI's per-pose tolerance (io/csv_log.py: 0.01 m / 5 deg)
 CI_M, CI_DEG = 0.01, 5.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and a thread pool per process as wide as the machine oversubscribes its
+    cores (the small eager ops here gain nothing from threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _torch_config(jcfg):
