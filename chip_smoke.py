@@ -9,18 +9,30 @@ the CUDA toolkit. Phases, each printed as it goes:
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compile csrc/knn.cu with nvcc (sm_90a) from this checkout;
 3. kernel vs plain: the k-NN kernel against its plain PyTorch version at the
-   slice's shapes — (Q=2048, k=10) edges and (Q=4096, k=5) planes — on a
-   65,536-slot map filled to capacity from all 30 rendered VLP-16 sweeps
-   (the largest a slice map can grow; the slice's own maps' occupancy at
-   frame 30 is printed in phase 4): bit-equal without
+   slice's shapes — (Q=2048, k=10) edges and (Q=4096, k=5) planes — on
+   three 65,536-slot maps from the 30 rendered VLP-16 sweeps: one filled to
+   capacity at 0.20 m leaves (the largest a slice map can grow), one at the
+   edge map's own 0.30 m leaf (its occupancy printed), and the full one
+   with slots 0-2047's coordinates copied onto 4,096 slots in other
+   sub-blocks and scan warps (exact ties). Each: bit-equal without
    pruning, equal wherever the plain neighbour lies within the 5 m prune
-   radius, dead queries empty; median of 20 CUDA-event timings of each;
+   radius, dead queries empty, the plan's work lists equal to
+   `plain_work_list`. Printed:
+   the beyond-radius entries that differ from the exact scan; the median
+   of 20 CUDA-event timings of the wrapper, of the C launch alone on a
+   prepared order, of its CUDA-graph replay, of the plain version and of
+   `torch.cdist` + `topk` (the library yardstick, two calls the port never
+   makes); each kernel's device time (profiler); the bound (9 FP32
+   operations per (live query, valid slot) pair whose 64-slot sub-block
+   lies within the radius, at 33.5 T/s) and the share of it; the scan
+   work of the busiest and the mean CTA (at most 2x, or it fails);
 4. the slice: `Slam(cfg, device="cuda").add_frame` over 30 VLP-16 sweeps at
    the bench configuration, held against the JAX package's trajectory
    (lidarslam_tpu_torch/data/vlp16_bench_ref.npz, made by
    scripts/make_torch_reference.py) and the simulator ground truth, with
-   exactly 2 kernel launches per localized frame; then a torch.profiler
-   window over 8 more synchronous frames (device busy time, kernels);
+   exactly 2 wrapper calls per localized frame; then a torch.profiler
+   window over 8 more synchronous frames (device busy time, kernels, each
+   k-NN kernel twice per frame and their device ms/frame);
 5. the stream: `add_frame_async` x 30 + `flush` at `stream_window=8` on the
    same sweeps, every steady-state frame a CUDA-graph replay, held against
    the JAX package's streaming trajectory (vlp16_bench_stream_ref.npz) and
@@ -28,8 +40,8 @@ the CUDA toolkit. Phases, each printed as it goes:
    second stream: one eager step under
    `torch.cuda.set_sync_debug_mode("error")` (no host sync), one replay
    against the eager step from the same state, and a torch.profiler window
-   over one full window of replays (the k-NN kernel runs exactly twice per
-   frame inside the graph).
+   over one full window of replays (each of the four k-NN kernels runs
+   exactly twice per frame inside the graph; their device ms/frame).
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero before printing a result.
@@ -55,6 +67,13 @@ PROFILED = range(17, 25)    # frames of the profiled windows
 # one replay against the eager step from the same state
 REPLAY_TOL_M, REPLAY_TOL_DEG = 1e-5, 1e-4
 PRUNE_RADIUS = 5.0
+# the card's peaks for the bound (H100 SXM data sheet): FP32 outside the
+# tensor cores, 67 TFLOP/s counting an FMA as two, so 33.5 T of the
+# kernel's non-FMA operations a second; HBM3 at 3.35 TB/s
+FP32_OPS_PER_S = 33.5e12
+HBM_BYTES_PER_S = 3.35e12
+# the k-NN's kernels (csrc/knn.cu), each launched once per wrapper call
+KNN_KERNELS = ("knn_plan", "knn_prefix", "knn_scan", "knn_merge")
 # the reference CI's per-pose tolerance (io/csv_log.py) and the simulator
 # ground-truth bounds of tests/test_slam_e2e.py
 REF_TOL_M, REF_TOL_DEG = 0.01, 5.0
@@ -146,18 +165,57 @@ def _median_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def kernel_test_map(frames, device):
+def _graph_ms(fn):
+    """Median of 20 CUDA-event timings of replays of one CUDA graph of `fn`:
+    the device time of its launches without the host's cost of issuing
+    them (as in the stream)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _median_ms(graph.replay)
+
+
+def _kernel_split_us(fn, reps=10):
+    """Device microseconds per call of each k-NN kernel over `reps` calls
+    of `fn` (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = dict.fromkeys(KNN_KERNELS, 0.0)
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        t = evt.self_cuda_time_total if t is None else t
+        for name in KNN_KERNELS:
+            if name in evt.key:
+                split[name] += t / reps
+    return split
+
+
+def kernel_test_map(frames, device, leaf: float = 0.20):
     """A 65,536-slot map filled from rendered sweeps through the port's own
-    insert, so its slots are leaf-key sorted as on the path. Its 0.20 m
-    leaves (the edge map's are 0.30 m) make 30 VLP-16 sweeps fill every
-    slot: the kernel then scans a map as full as a slice map can get."""
+    insert, so its slots are leaf-key sorted as on the path. At 0.20 m
+    leaves (the edge map's are 0.30 m) 30 VLP-16 sweeps fill every slot:
+    the kernel then scans a map as full as a slice map can get."""
     import numpy as np
     import torch
 
     from lidarslam_tpu_torch.config import MapConfig
     from lidarslam_tpu_torch.ops import voxel_map
 
-    cfg = MapConfig(leaf_size=0.20, capacity=1 << 16)
+    cfg = MapConfig(leaf_size=leaf, capacity=1 << 16)
     m = voxel_map.VoxelMap.empty(cfg, device)
     origin = frames[0]["gt_pose"][:3, 3]
     for f in frames:
@@ -171,69 +229,194 @@ def kernel_test_map(frames, device):
     return m, origin
 
 
-def phase_kernel(frames):
-    """Kernel vs plain at the slice's shapes. Returns the kernel record."""
+def tie_map(xyz):
+    """The full map's coordinates with those of slots 0-2047 copied onto
+    slots 20,000 and 45,000 on: each copy lies in another sub-block, far
+    apart in the scan order (so in another scan warp), at exactly the same
+    distance from every query."""
+    x = xyz.clone()
+    for off in (20_000, 45_000):
+        x[off:off + 2048] = xyz[:2048]
+    return x
+
+
+def _queries(world, Q, rng, device, on=None):
+    """Q noisy queries off one sweep, ~75% live; `on`: (n, 3) points the
+    first n queries sit on exactly."""
+    import numpy as np
+    import torch
+
+    pick = rng.choice(len(world), Q, replace=False)
+    q = world[pick] + rng.normal(0, 0.05, (Q, 3)).astype(np.float32)
+    if on is not None:
+        q[:len(on)] = on
+    q_valid = rng.uniform(size=Q) < 0.75
+    return torch.from_numpy(q).to(device), torch.from_numpy(q_valid).to(device)
+
+
+def _work_list_ok(run, want):
+    """The kernel's work lists (rows of run.work, run.count long) hold
+    exactly want's sub-blocks, in ascending order."""
+    import torch
+
+    n = run.count.long()
+    used = torch.arange(run.work.shape[1], device=n.device)[None, :] < n[:, None]
+    got = torch.zeros_like(want)
+    rows = torch.arange(run.work.shape[0], device=n.device)[:, None].expand_as(used)
+    got[rows[used], run.work.long()[used]] = True
+    ascending = ((run.work[:, 1:] > run.work[:, :-1]) | ~used[:, 1:]).all()
+    return (torch.equal(n, want.sum(1)) and torch.equal(got, want) and bool(ascending)
+            and int(run.start[-1]) == int(n.sum()))
+
+
+def bound_pairs(index, queries, q_valid, radius: float) -> int:
+    """The (live query, valid slot) pairs an exact scan must evaluate when
+    it prunes per query at the kernel's own granularity: those whose 64-slot
+    sub-block box (index.sub_lo/sub_hi) lies within `radius` of the query.
+    The bound counts 9 FP32 operations for each (3 subtracts, 3 multiplies,
+    2 adds, 1 compare)."""
+    import torch
+
+    n_valid = index.pts[:, 0].isfinite().reshape(index.n_sub, -1).sum(1)
+    q = queries[q_valid][:, None, :]
+    g = torch.clamp(torch.maximum(index.sub_lo[None, :, :3] - q,
+                                  q - index.sub_hi[None, :, :3]), min=0.0)
+    box = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2]
+    return int(((box <= radius * radius) * n_valid).sum())
+
+
+def _kernel_case(label, m, index, q, q_valid, k, card):
+    """One (map, shape): the kernel against plain_knn and its plan against
+    plain_work_list, the bound, the scan's work per CTA and the timings.
+    Returns its record."""
+    import torch
+
+    from lidarslam_tpu_torch.ops import cuda_knn
+
+    r2 = PRUNE_RADIUS ** 2
+    # no pruning: bit-equal to the plain version
+    kd, ki, kn = cuda_knn.kernel_knn(index, q, k, None, q_valid)
+    pd, pi, pn = cuda_knn.plain_knn(m.xyz, m.valid, q, k, q_valid=q_valid)
+    torch.cuda.synchronize()
+    if not (torch.equal(kd, pd) and torch.equal(ki, pi) and torch.equal(kn, pn)):
+        bad = int(((kd != pd) | (ki != pi)).any(dim=1).sum())
+        raise AssertionError(f"{label}: kernel != plain without pruning ({bad} rows)")
+    dead = ~q_valid
+    if not (torch.isinf(kd[dead]).all() and (ki[dead] == 0).all()
+            and (kn[dead] == 0).all()):
+        raise AssertionError(f"{label}: dead queries returned neighbours")
+
+    # with the matcher's prune radius: nothing within the radius is lost
+    rd, ri_, rn = cuda_knn.kernel_knn(index, q, k, PRUNE_RADIUS, q_valid)
+    torch.cuda.synchronize()
+    inside = torch.isfinite(pd) & (pd <= r2)
+    if not (torch.equal(rd[inside], pd[inside]) and torch.equal(ri_[inside], pi[inside])
+            and torch.equal(rn[inside], pn[inside])):
+        raise AssertionError(f"{label}: pruning lost a neighbour within the radius")
+    fin = torch.isfinite(rd)
+    if not bool(m.valid[ri_[fin].long()].all()):
+        raise AssertionError(f"{label}: pruned kernel returned an invalid slot")
+    if not (torch.isinf(rd[dead]).all() and (ri_[dead] == 0).all()):
+        raise AssertionError(f"{label}: pruned kernel returned neighbours for dead queries")
+    beyond = int((((rd != pd) | (ri_ != pi)) & ~inside & q_valid[:, None]).sum())
+    err = float(torch.where(inside, (rd - pd).abs(), 0.0).max())
+
+    # the plan against its plain version; the scan's work per CTA
+    order = cuda_knn.spatial_order(q, PRUNE_RADIUS, q_valid)
+    run = cuda_knn.launch(index, q, q_valid, order, k, r2)
+    want = cuda_knn.plain_work_list(index, q, q_valid, order, r2)
+    torch.cuda.synchronize()
+    if not _work_list_ok(run, want):
+        raise AssertionError(f"{label}: the plan's work lists != plain_work_list")
+    if not (torch.equal(run.d2, rd) and torch.equal(run.idx, ri_)):
+        raise AssertionError(f"{label}: launch on a prepared order != kernel_knn")
+    given, scanned = run.stats[:, 0].float(), run.stats[:, 1].float()
+
+    # the bound: 9 FP32 operations per pair that per-query sub-block pruning keeps
+    pairs = bound_pairs(index, q, q_valid, PRUNE_RADIUS)
+    ops_us = 1e6 * 9 * pairs / FP32_OPS_PER_S
+    nbytes = (sum(t.nbytes for t in index) + q.nbytes + q_valid.nbytes
+              + rd.nbytes + ri_.nbytes + rn.nbytes)
+    bytes_us = 1e6 * nbytes / HBM_BYTES_PER_S
+    bound_us = max(ops_us, bytes_us)
+
+    wrapper_ms = _median_ms(lambda: cuda_knn.kernel_knn(index, q, k, PRUNE_RADIUS, q_valid))
+    launch_ms = _median_ms(lambda: cuda_knn.launch(index, q, q_valid, order, k, r2))
+    device_ms = _graph_ms(lambda: cuda_knn.launch(index, q, q_valid, order, k, r2))
+    split = _kernel_split_us(lambda: cuda_knn.launch(index, q, q_valid, order, k, r2))
+    plain_ms = _median_ms(lambda: cuda_knn.plain_knn(m.xyz, m.valid, q, k, q_valid=q_valid))
+    pts = index.pts[:, :3].contiguous()
+    library_ms = _median_ms(lambda: torch.topk(
+        torch.cdist(q, pts, compute_mode="donot_use_mm_for_euclid_dist"), k,
+        largest=False))
+    n_live = int(q_valid.sum())
+    print(f"[kernel] {label} Q={len(q)} k={k}: exact without pruning; "
+          f"{int(inside.sum())} within-radius neighbours kept; {n_live} live "
+          f"queries; {beyond} of {n_live * k} live (query, rank) entries beyond the "
+          f"radius differ from the exact scan", flush=True)
+    print(f"[kernel] {label}: wrapper {wrapper_ms:.4f} ms, C launch on a prepared order "
+          f"{launch_ms:.4f} ms, its graph replay {device_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library cdist+topk (two calls) {library_ms:.4f} ms "
+          f"(median of 20; {card})", flush=True)
+    print(f"[kernel] {label}: device us per call by kernel (profiler, 10 calls): "
+          + ", ".join(f"{n} {t:.1f}" for n, t in split.items()), flush=True)
+    print(f"[kernel] {label}: bound {pairs} pairs x 9 ops = {ops_us:.2f} us "
+          f"(bytes {nbytes} = {bytes_us:.2f} us); graph replay at "
+          f"{100 * bound_us / (1000 * device_ms):.1f}% of it, C launch at "
+          f"{100 * bound_us / (1000 * launch_ms):.1f}%, wrapper at "
+          f"{100 * bound_us / (1000 * wrapper_ms):.1f}%", flush=True)
+    print(f"[kernel] {label}: {int(run.start[-1])} (tile, sub-block) entries over "
+          f"{len(given)} scan CTAs: given busiest {int(given.max())} / mean "
+          f"{float(given.mean()):.2f}, scanned busiest {int(scanned.max())} / mean "
+          f"{float(scanned.mean()):.2f}", flush=True)
+    if float(given.max()) > 2 * float(given.mean()):
+        raise AssertionError(f"{label}: busiest scan CTA above 2x the mean work")
+    return {"err": err, "ms": wrapper_ms, "launch_ms": launch_ms, "device_ms": device_ms,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_us": bound_us, "beyond": beyond}
+
+
+def phase_kernel(frames, card: str):
+    """Kernel vs plain at the slice's shapes on three maps. Returns the
+    full map's record (edges + planes) and the largest error."""
     import numpy as np
     import torch
 
     from lidarslam_tpu_torch.ops import cuda_knn
 
     dev = torch.device("cuda")
-    m, origin = kernel_test_map(frames, dev)
-    n_valid = int(m.valid.sum())
-    print(f"[kernel] map from {len(frames)} sweeps: {m.xyz.shape[0]} slots, "
-          f"{n_valid} valid ({100 * n_valid / m.xyz.shape[0]:.1f}%), "
-          f"{int(m.overflow)} leaves dropped at capacity", flush=True)
-    if n_valid != m.xyz.shape[0]:
-        raise AssertionError("the kernel's test map is not full")
-    index = cuda_knn.prepare_map(m.xyz, m.valid)
-    rng = np.random.default_rng(0)
+    full, origin = kernel_test_map(frames, dev)
+    fill, _ = kernel_test_map(frames, dev, leaf=0.30)
+    ties = full._replace(xyz=tie_map(full.xyz))
     f = frames[8]
     R, t = f["gt_pose"][:3, :3], f["gt_pose"][:3, 3] - origin
     world = (f["xyz"].astype(np.float64) @ R.T + t).astype(np.float32)
 
-    max_err = 0.0
-    ms, plain_ms = {}, {}
-    for name, Q, k in (("edges", 2048, 10), ("planes", 4096, 5)):
-        pick = rng.choice(len(world), Q, replace=False)
-        q = torch.from_numpy(world[pick] + rng.normal(0, 0.05, (Q, 3)).astype(np.float32)).to(dev)
-        q_valid = torch.from_numpy(rng.uniform(size=Q) < 0.75).to(dev)
-
-        # no pruning: bit-equal to the plain version
-        kd, ki, kn = cuda_knn.kernel_knn(index, q, k, None, q_valid)
-        pd, pi, pn = cuda_knn.plain_knn(m.xyz, m.valid, q, k, q_valid=q_valid)
-        torch.cuda.synchronize()
-        if not (torch.equal(kd, pd) and torch.equal(ki, pi) and torch.equal(kn, pn)):
-            bad = int((kd != pd).any(dim=1).sum() + (ki != pi).any(dim=1).sum())
-            raise AssertionError(f"{name}: kernel != plain without pruning ({bad} rows)")
-        dead = ~q_valid
-        if not (torch.isinf(kd[dead]).all() and (ki[dead] == 0).all()
-                and (kn[dead] == 0).all()):
-            raise AssertionError(f"{name}: dead queries returned neighbours")
-
-        # with the matcher's prune radius: nothing within the radius is lost
-        rd, ri_, rn = cuda_knn.kernel_knn(index, q, k, PRUNE_RADIUS, q_valid)
-        torch.cuda.synchronize()
-        inside = torch.isfinite(pd) & (pd <= PRUNE_RADIUS ** 2)
-        if not (torch.equal(rd[inside], pd[inside]) and torch.equal(ri_[inside], pi[inside])
-                and torch.equal(rn[inside], pn[inside])):
-            raise AssertionError(f"{name}: pruning lost a neighbour within the radius")
-        fin = torch.isfinite(rd)
-        if not bool(m.valid[ri_[fin].long()].all()):
-            raise AssertionError(f"{name}: pruned kernel returned an invalid slot")
-        err = float(torch.where(inside, (rd - pd).abs(), 0.0).max())
-        max_err = max(max_err, err)
-        print(f"[kernel] {name} Q={Q} k={k}: exact without pruning; "
-              f"{int(inside.sum())} within-radius neighbours kept; "
-              f"{int(q_valid.sum())} live queries", flush=True)
-
-        ms[name] = _median_ms(lambda: cuda_knn.kernel_knn(index, q, k, PRUNE_RADIUS, q_valid))
-        plain_ms[name] = _median_ms(
-            lambda: cuda_knn.plain_knn(m.xyz, m.valid, q, k, q_valid=q_valid))
-        print(f"[kernel] {name} Q={Q} k={k}: kernel {ms[name]:.4f} ms, "
-              f"plain {plain_ms[name]:.4f} ms (median of 20)", flush=True)
-    return {"max_abs_err": max_err, "ms": ms["edges"] + ms["planes"],
-            "plain_ms": plain_ms["edges"] + plain_ms["planes"]}
+    recs, max_err = {}, 0.0
+    for label, m, seed in (("full", full, 0), ("slice-fill", fill, 1), ("ties", ties, 2)):
+        n_valid = int(m.valid.sum())
+        print(f"[kernel] {label} map from {len(frames)} sweeps: {m.xyz.shape[0]} slots, "
+              f"{n_valid} valid ({100 * n_valid / m.xyz.shape[0]:.1f}%), "
+              f"{int(m.overflow)} leaves dropped at capacity", flush=True)
+        if label == "full" and n_valid != m.xyz.shape[0]:
+            raise AssertionError("the kernel's full test map is not full")
+        index = cuda_knn.prepare_map(m.xyz, m.valid)
+        rng = np.random.default_rng(seed)
+        on = m.xyz[:2048:4].cpu().numpy() if label == "ties" else None
+        for name, Q, k in (("edges", 2048, 10), ("planes", 4096, 5)):
+            q, q_valid = _queries(world, Q, rng, dev, on)
+            rec = _kernel_case(f"{label} {name}", m, index, q, q_valid, k, card)
+            recs[(label, name)] = rec
+            max_err = max(max_err, rec["err"])
+    both = {key: recs[("full", "edges")][key] + recs[("full", "planes")][key]
+            for key in ("ms", "launch_ms", "device_ms", "plain_ms", "library_ms",
+                        "bound_us")}
+    fill_ms = recs[("slice-fill", "edges")]["ms"] + recs[("slice-fill", "planes")]["ms"]
+    print(f"[kernel] full map, edges + planes: wrapper {both['ms']:.4f} ms, C launch "
+          f"{both['launch_ms']:.4f} ms, graph replay {both['device_ms']:.4f} ms, bound "
+          f"{both['bound_us']:.2f} us; slice-fill map: wrapper {fill_ms:.4f} ms ({card})",
+          flush=True)
+    return {"max_abs_err": max_err, **both, "slice_fill_ms": fill_ms}
 
 
 def _check_trajectory(tag, frames, results, ref):
@@ -268,7 +451,8 @@ def _check_trajectory(tag, frames, results, ref):
 
 def _profile(fn, n_frames: int):
     """torch.profiler over `fn` (which ends in a device sync): device busy
-    ms/frame, device kernels/frame, and k-NN kernel executions."""
+    ms/frame, device kernels/frame, executions of each k-NN kernel, and
+    the k-NN kernels' device ms/frame (every device kernel named knn_*)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -276,20 +460,32 @@ def _profile(fn, n_frames: int):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy_us, kernels, knn = 0.0, 0, 0
+    busy_us, kernels, knn_us = 0.0, 0, 0.0
+    knn = dict.fromkeys(KNN_KERNELS, 0)
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t = getattr(evt, "self_device_time_total", None)
-        busy_us += evt.self_cuda_time_total if t is None else t
+        t = evt.self_cuda_time_total if t is None else t
+        busy_us += t
         if not evt.key.startswith(("Memcpy", "Memset")):
             kernels += evt.count
-        if "knn_kernel" in evt.key:
-            knn += evt.count
+        if "knn_" in evt.key:
+            knn_us += t
+        for name in KNN_KERNELS:
+            if name in evt.key:
+                knn[name] += evt.count
     if busy_us <= 0 or kernels == 0:
         raise AssertionError("torch.profiler saw no device time")
     return {"busy_ms": busy_us / 1000.0 / n_frames, "kernels": kernels / n_frames,
-            "knn": knn}
+            "knn": knn, "knn_ms": knn_us / 1000.0 / n_frames}
+
+
+def _check_knn_executions(tag, prof, n_frames):
+    """Each k-NN kernel ran twice per frame (edges and planes)."""
+    if any(n != 2 * n_frames for n in prof["knn"].values()):
+        raise AssertionError(f"[{tag}] k-NN kernel executions {prof['knn']} in "
+                             f"{n_frames} frames (expected {2 * n_frames} each)")
 
 
 def phase_slice(frames):
@@ -348,10 +544,13 @@ def phase_slice(frames):
                         len(PROFILED))
     finally:
         icp.solver.robust_lm = robust_lm
+    _check_knn_executions("slice", prof, len(PROFILED))
     print(f"[slice] profiled frames {PROFILED.start}-{PROFILED.stop - 1}: device busy "
           f"{prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} device kernels/frame, "
           f"{len(rounds)} ICP rounds run of "
-          f"{slam.cfg.localization_icp_max_iter * len(PROFILED)}", flush=True)
+          f"{slam.cfg.localization_icp_max_iter * len(PROFILED)}; k-NN kernels "
+          f"{prof['knn_ms']:.4f} ms/frame ({100 * prof['knn_ms'] / prof['busy_ms']:.2f}% "
+          f"of device busy), executions {prof['knn']}", flush=True)
     return {"launches": launches, "ms_frame": ms_frame, **prof}
 
 
@@ -451,17 +650,17 @@ def phase_stream(frames, card: str, sync: dict):
     # frames 18-25 (one full window of replays), profiled
     window = range(PROFILED.start + 1, PROFILED.start + 1 + WINDOW)
     prof = _profile(lambda: [slam.add_frame_async(frames[i]) for i in window], WINDOW)
-    if prof["knn"] != 2 * WINDOW:
-        raise AssertionError(f"[stream] knn_kernel ran {prof['knn']} times in a window "
-                             f"of {WINDOW} replays (expected {2 * WINDOW})")
+    _check_knn_executions("stream", prof, WINDOW)
     print(f"[stream] profiled window of {WINDOW} replays (frames {window.start}-"
-          f"{window.stop - 1}): knn_kernel executed {prof['knn']} times "
-          f"({prof['knn'] / WINDOW:.1f}/frame); device busy {prof['busy_ms']:.2f} "
-          f"ms/frame, {prof['kernels']:.1f} device kernels/frame", flush=True)
+          f"{window.stop - 1}): k-NN kernel executions {prof['knn']} (2 per frame "
+          f"each); device busy {prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} "
+          f"device kernels/frame; k-NN kernels {prof['knn_ms']:.4f} ms/frame "
+          f"({100 * prof['knn_ms'] / prof['busy_ms']:.2f}% of device busy)", flush=True)
     print(f"[stream-vs-sync] {card}: stream {ms_frame:.2f} ms/frame, sync "
           f"{sync['ms_frame']:.2f} ms/frame; device busy stream {prof['busy_ms']:.2f} / "
           f"sync {sync['busy_ms']:.2f} ms/frame; kernels/frame stream "
-          f"{prof['kernels']:.1f} / sync {sync['kernels']:.1f}", flush=True)
+          f"{prof['kernels']:.1f} / sync {sync['kernels']:.1f}; k-NN device ms/frame "
+          f"stream {prof['knn_ms']:.4f} / sync {sync['knn_ms']:.4f}", flush=True)
     return {"ms_frame": ms_frame, "calls": calls, **prof}
 
 
@@ -487,7 +686,7 @@ def main() -> int:
     print(f"[frames] rendered {len(frames)} VLP-16 sweeps "
           f"(~{len(frames[0]['xyz'])} points each) in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    rec = phase_kernel(frames)
+    rec = phase_kernel(frames, card)
     sync = phase_slice(frames)
     stream = phase_stream(frames, card, sync)
     print(json.dumps({"kernels": [{
@@ -495,6 +694,12 @@ def main() -> int:
         "replaces": "lidarslam_tpu/ops/pallas_knn.py:121",
         "launches": sync["launches"], "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_us"] / 1000.0, "bound_by": "operations",
+        "library_ms": rec["library_ms"], "bound_us": rec["bound_us"],
+        "launch_ms": rec["launch_ms"], "device_ms": rec["device_ms"],
+        "slice_fill_ms": rec["slice_fill_ms"],
+        "stream_knn_device_ms_per_frame": stream["knn_ms"],
+        "sync_knn_device_ms_per_frame": sync["knn_ms"],
         "stream_wrapper_calls": stream["calls"], "stream_executions": stream["knn"],
         "stream_frames_profiled": WINDOW}]}),
         flush=True)

@@ -72,8 +72,15 @@ def _finish(A6, P, X, weight, ok, status):
 def _knn(index: SubmapView, world, k, params: MatchingConfig, q_valid=None,
          prepared=None):
     """Neighbour search. Returns (d2 (Q,k), nbr (Q,k,3), found (Q,k)).
-    Blocks beyond the neighbour gate are skipped on the kernel path; any
-    neighbour dropped that way would have been rejected by the `near` gate."""
+    On the kernel path map sub-blocks beyond the neighbour gate are skipped:
+    every neighbour within the gate comes back as in the exact scan, but
+    which slots beyond it come back (or none) may differ, and that can change
+    a match of either type. For edges `near` reads only the RANSAC
+    selection, so a different beyond-gate slot can enter it. Under
+    `reuse_knn` the round-0 neighbours are cached and their distances
+    recomputed at each later round's pose (`_reuse_d2`), so a beyond-gate
+    neighbour the exact scan keeps can move inside the gate; where the
+    kernel returned none, the query lacks it in every round."""
     d2, _, nbr = brute_knn(index, world, k,
                            prune_radius=float(params.max_neighbors_distance),
                            q_valid=q_valid, prepared=prepared)

@@ -22,8 +22,9 @@ of a frame then launch as one graph instead of one Python call each.
   copied out of the graph's static outputs into the window's own tensors.
 
 Nothing falls back to eager execution: a capture or replay failure raises.
-The k-NN kernel (csrc/knn.cu) launches on the current stream, which is the
-capturing stream during capture, so the graph contains it;
+The k-NN kernels (csrc/knn.cu) launch on the current stream, which is the
+capturing stream during capture, so the graph contains them, with the
+workspace the wrapper allocates from the graph's pool;
 `cuda_knn.LAUNCHES` counts Python calls (warm-up and capture), not replays.
 """
 

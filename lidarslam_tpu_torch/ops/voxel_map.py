@@ -290,8 +290,8 @@ def brute_knn(view: SubmapView, queries, k: int,
               prepared: Optional[cuda_knn.KnnIndex] = None):
     """k nearest valid slots of the view per query: (sq_dists (Q, k)
     ascending with +inf for missing, rows (Q, k), neighbour coordinates
-    (Q, k, 3), 0 where missing). CUDA queries run the kernel (blocks beyond
-    `prune_radius` skipped), CPU queries the exact scan."""
+    (Q, k, 3), 0 where missing). CUDA queries run the kernel (sub-blocks
+    beyond `prune_radius` skipped), CPU queries the exact scan."""
     return cuda_knn.knn(view.xyz, view.valid, queries, k,
                         prune_radius=prune_radius, q_valid=q_valid,
                         prepared=prepared)

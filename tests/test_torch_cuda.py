@@ -5,6 +5,8 @@ This file imports no jax, so it also runs on a machine without it:
     python -m pytest tests/test_torch_cuda.py -q -o addopts="" --noconftest
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -49,6 +51,11 @@ def knn_scene(seed=0, capacity=8192, q=256):
     return xyz, valid, queries, q_valid
 
 
+@functools.lru_cache(maxsize=1)
+def _scene():
+    return knn_scene()
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -71,6 +78,127 @@ def test_cuda_kernel_matches_plain(cuda):
         assert torch.equal(rd[inside], pd[inside]) and torch.equal(ri[inside], pi[inside])
         assert torch.equal(rn[inside], pn[inside])
         assert torch.isinf(rd[~qv]).all() and (ri[~qv] == 0).all()
+
+
+def _queries_off(xyz, valid, q, seed):
+    """q noisy queries around valid map slots, ~25% of them dead."""
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(np.flatnonzero(valid), q, replace=q > valid.sum())
+    queries = (xyz[pick] + rng.normal(0, 0.3, (q, 3))).astype(np.float32)
+    return queries, rng.uniform(size=q) < 0.75
+
+
+def tie_scene(capacity=8192, q=2048, seed=0):
+    """Integer-grid slots, each coordinate repeated in several sub-blocks
+    far apart in slot order (so the copies land in different scan warps),
+    and queries on grid points: many exactly equal d2."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-6, 7, (capacity // 8, 3)).astype(np.float32)
+    xyz = np.concatenate([base[rng.permutation(len(base))] for _ in range(8)])
+    valid = rng.uniform(size=capacity) < 0.9
+    queries = (rng.integers(-6, 7, (q, 3)) + 0.5 * (rng.uniform(size=(q, 1)) < 0.3)
+               ).astype(np.float32)
+    return xyz, valid, queries, rng.uniform(size=q) < 0.8
+
+
+def _check_kernel(cuda, xyz, valid, queries, q_valid, k, radius=RADIUS):
+    """Kernel against plain_knn: bit-equal without pruning, equal within the
+    prune radius, dead queries empty, valid slots only."""
+    x, v = torch.from_numpy(xyz).to(cuda), torch.from_numpy(valid).to(cuda)
+    q, qv = torch.from_numpy(queries).to(cuda), torch.from_numpy(q_valid).to(cuda)
+    index = cuda_knn.prepare_map(x, v)
+    kd, ki, kn = cuda_knn.kernel_knn(index, q, k, None, qv)
+    pd, pi, pn = cuda_knn.plain_knn(x, v, q, k, q_valid=qv)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi) and torch.equal(kn, pn)
+    rd, ri, rn = cuda_knn.kernel_knn(index, q, k, radius, qv)
+    inside = torch.isfinite(pd) & (pd <= radius ** 2)
+    assert torch.equal(rd[inside], pd[inside]) and torch.equal(ri[inside], pi[inside])
+    assert torch.equal(rn[inside], pn[inside])
+    assert torch.isinf(rd[~qv]).all() and (ri[~qv] == 0).all() and (rn[~qv] == 0).all()
+    assert bool(v[ri[torch.isfinite(rd)].long()].all())
+    return index, q, qv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 5, 10, 16])
+@pytest.mark.parametrize("Q", [1, 31, 33, 2048, 4096])
+def test_cuda_kernel_bit_equal_over_k_and_q(cuda, k, Q):
+    xyz, valid, _, _ = _scene()
+    queries, q_valid = _queries_off(xyz, valid, Q, seed=Q + k)
+    _check_kernel(cuda, xyz, valid, queries, q_valid, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 10, 16])
+def test_cuda_kernel_ties(cuda, k):
+    _check_kernel(cuda, *tie_scene(), k, radius=2.0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_empty_map_and_dead_queries(cuda):
+    xyz, valid, queries, q_valid = _scene()
+    for v, qv in ((np.zeros_like(valid), q_valid), (valid, np.zeros_like(q_valid))):
+        index, q, qvt = _check_kernel(cuda, xyz, v, queries, qv, 5)
+        d2, idx, nbr = cuda_knn.kernel_knn(index, q, 5, RADIUS, qvt)
+        assert torch.isinf(d2).all() and (idx == 0).all() and (nbr == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_plan_matches_plain_work_list(cuda):
+    """The plan kernel's work lists are exactly the plain version's
+    sub-blocks, in ascending order, and the prefix adds them up."""
+    xyz, valid, _, _ = _scene()
+    queries, q_valid = _queries_off(xyz, valid, 2048, seed=5)
+    x, v = torch.from_numpy(xyz).to(cuda), torch.from_numpy(valid).to(cuda)
+    q, qv = torch.from_numpy(queries).to(cuda), torch.from_numpy(q_valid).to(cuda)
+    index = cuda_knn.prepare_map(x, v)
+    order = cuda_knn.spatial_order(q, RADIUS, qv)
+    for r2 in (RADIUS ** 2, float("inf")):
+        run = cuda_knn.launch(index, q, qv, order, 10, r2)
+        want = cuda_knn.plain_work_list(index, q, qv, order, r2)
+        assert torch.equal(run.count, want.sum(1).to(torch.int32))
+        assert int(run.start[0]) == 0
+        assert torch.equal(run.start[1:], torch.cumsum(run.count, 0).to(torch.int32))
+        for t in range(want.shape[0]):
+            n = int(run.count[t])
+            assert torch.equal(run.work[t, :n].long(), torch.nonzero(want[t])[:, 0])
+        assigned = run.stats[:, 0]
+        assert int(assigned.sum()) == int(run.start[-1])
+        assert bool((run.stats[:, 1] <= assigned).all())
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_repeated_launches_bit_identical(cuda):
+    xyz, valid, queries, q_valid = tie_scene()
+    index, q, qv = _check_kernel(cuda, xyz, valid, queries, q_valid, 10, radius=2.0)
+    first = cuda_knn.kernel_knn(index, q, 10, 2.0, qv)
+    for _ in range(10):
+        again = cuda_knn.kernel_knn(index, q, 10, 2.0, qv)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_in_cuda_graph(cuda):
+    """The four launches capture in a CUDA graph; a replay on new query
+    values equals the eager call on them."""
+    xyz, valid, _, _ = _scene()
+    queries, q_valid = _queries_off(xyz, valid, 2048, seed=7)
+    index, q, qv = _check_kernel(cuda, xyz, valid, queries, q_valid, 10)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_knn.kernel_knn(index, q, 10, RADIUS, qv)   # warm-up off the default stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cuda_knn.kernel_knn(index, q, 10, RADIUS, qv)
+    new_q, new_qv = _queries_off(xyz, valid, 2048, seed=8)
+    q.copy_(torch.from_numpy(new_q))
+    qv.copy_(torch.from_numpy(new_qv))
+    graph.replay()
+    eager = cuda_knn.kernel_knn(index, q, 10, RADIUS, qv)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
 
 
 @pytest.mark.cuda

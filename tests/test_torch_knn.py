@@ -2,6 +2,9 @@
 exact brute force and its Pallas kernel (interpret mode). The CUDA kernel
 against the plain version is in tests/test_torch_cuda.py (GPU only)."""
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -143,22 +146,149 @@ def test_pruning_loses_no_neighbour_within_radius(scene):
     assert np.isinf(td[~live]).all()
 
 
+def _numpy_index(xyz, valid):
+    """prepare_map's fields, by numpy loops: (pts (NS*SB, 4), lo (NS, 4),
+    hi (NS, 4))."""
+    sb = cuda_knn.SUB_BLOCK
+    ns = max(-(-len(xyz) // sb), 1)
+    pts = np.full((ns * sb, 4), np.inf, np.float32)
+    pts[:, 3] = 0.0
+    pts[:len(xyz)][valid, :3] = xyz[valid]
+    lo = np.zeros((ns, 4), np.float32)
+    hi = np.zeros((ns, 4), np.float32)
+    for b in range(ns):
+        sel = np.zeros(len(xyz), bool)
+        sel[b * sb:(b + 1) * sb] = True
+        p = xyz[sel & valid]
+        lo[b, :3] = p.min(0) if len(p) else np.inf
+        hi[b, :3] = p.max(0) if len(p) else -np.inf
+    return pts, lo, hi
+
+
 def test_prepare_map_blocks():
+    """The packed slots and sub-block AABBs against numpy on a map that is
+    a multiple of neither the sub-block nor a 1024-slot block, with one
+    empty 1024-slot block."""
     rng = np.random.default_rng(3)
-    M = 2 * cuda_knn.MAP_BLOCK + 100
-    xyz = torch.from_numpy(rng.uniform(-9, 9, (M, 3)).astype(np.float32))
-    valid = torch.from_numpy(rng.uniform(size=M) < 0.6)
-    valid[cuda_knn.MAP_BLOCK:2 * cuda_knn.MAP_BLOCK] = False   # one empty block
-    idx = cuda_knn.prepare_map(xyz, valid)
-    assert idx.n_blocks == 3 and idx.px.shape == (3 * cuda_knn.MAP_BLOCK,)
-    planes = torch.stack([idx.px, idx.py, idx.pz], dim=1)
-    assert torch.equal(planes[:M][valid], xyz[valid])
-    assert torch.isinf(planes[:M][~valid]).all() and torch.isinf(planes[M:]).all()
-    assert torch.isinf(idx.bmin[1]).all() and torch.isinf(idx.bmax[1]).all()
-    for b in (0, 2):
-        sl = slice(b * cuda_knn.MAP_BLOCK, min((b + 1) * cuda_knn.MAP_BLOCK, M))
-        pts = xyz[sl][valid[sl]]
-        assert torch.equal(idx.bmin[b], pts.amin(0)) and torch.equal(idx.bmax[b], pts.amax(0))
+    block = 1024
+    M = 2 * block + 100
+    xyz = rng.uniform(-9, 9, (M, 3)).astype(np.float32)
+    valid = rng.uniform(size=M) < 0.6
+    valid[block:2 * block] = False   # one empty block
+    idx = cuda_knn.prepare_map(torch.from_numpy(xyz), torch.from_numpy(valid))
+    ns = -(-M // cuda_knn.SUB_BLOCK)
+    assert idx.n_sub == ns and idx.pts.shape == (ns * cuda_knn.SUB_BLOCK, 4)
+    assert all(t.is_contiguous() for t in idx)
+    pts, lo, hi = _numpy_index(xyz, valid)
+    np.testing.assert_array_equal(idx.pts.numpy(), pts)
+    np.testing.assert_array_equal(idx.sub_lo.numpy(), lo)
+    np.testing.assert_array_equal(idx.sub_hi.numpy(), hi)
+    empty = slice(block // cuda_knn.SUB_BLOCK, 2 * block // cuda_knn.SUB_BLOCK)
+    assert np.isposinf(idx.sub_lo.numpy()[empty, :3]).all()
+    assert np.isneginf(idx.sub_hi.numpy()[empty, :3]).all()
+
+
+@pytest.mark.parametrize("M", [1, cuda_knn.SUB_BLOCK, 3 * cuda_knn.SUB_BLOCK - 5])
+def test_prepare_map_sub_blocks_hold_their_valid_slots(M):
+    """Every valid slot lies in its sub-block's AABB and each face of the
+    AABB touches one; padding and invalid slots are +inf."""
+    rng = np.random.default_rng(M)
+    xyz = rng.normal(0, 4, (M, 3)).astype(np.float32)
+    valid = rng.uniform(size=M) < 0.5
+    valid[0] = True
+    idx = cuda_knn.prepare_map(torch.from_numpy(xyz), torch.from_numpy(valid))
+    pts, lo, hi = _numpy_index(xyz, valid)
+    np.testing.assert_array_equal(idx.pts.numpy(), pts)
+    np.testing.assert_array_equal(idx.sub_lo.numpy(), lo)
+    np.testing.assert_array_equal(idx.sub_hi.numpy(), hi)
+    sb = np.arange(M) // cuda_knn.SUB_BLOCK
+    got_lo, got_hi = idx.sub_lo.numpy()[sb, :3], idx.sub_hi.numpy()[sb, :3]
+    assert ((got_lo <= xyz) & (xyz <= got_hi))[valid].all()
+    assert np.isinf(idx.pts.numpy()[M:, :3]).all()
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bound_pairs_matches_numpy(scene):
+    """chip_smoke's count of the bound's pairs against a brute numpy count:
+    every (live query, valid slot) whose 64-slot sub-block box lies within
+    the radius."""
+    xyz, valid, queries, q_valid = scene
+    xyz, valid = xyz[:3000], valid[:3000]        # not a multiple of the sub-block
+    index = cuda_knn.prepare_map(torch.from_numpy(xyz), torch.from_numpy(valid))
+    got = _chip_smoke().bound_pairs(index, torch.from_numpy(queries),
+                                    torch.from_numpy(q_valid), RADIUS)
+    B = cuda_knn.SUB_BLOCK
+    want = 0
+    for b in range(0, len(xyz), B):
+        p = xyz[b:b + B][valid[b:b + B]]
+        if not len(p):
+            continue
+        lo, hi = p.min(0), p.max(0)
+        for q in queries[q_valid]:
+            g = np.maximum(np.maximum(lo - q, q - hi), 0).astype(np.float32)
+            if g[0] * g[0] + g[1] * g[1] + g[2] * g[2] <= RADIUS ** 2:
+                want += len(p)
+    assert got == want > 0
+
+
+@pytest.mark.parametrize("radius", [1.0, RADIUS, None])
+def test_plain_work_list_keeps_every_pair_within_radius(scene, radius):
+    """No (tile, sub-block) holding a (live query, valid slot) pair within
+    the radius is missing from the plan's work list, which lists only
+    non-empty sub-blocks of tiles with a live query, and all of them
+    without a radius."""
+    xyz, valid, queries, q_valid = scene
+    x, v = torch.from_numpy(xyz), torch.from_numpy(valid)
+    q, qv = torch.from_numpy(queries), torch.from_numpy(q_valid)
+    index = cuda_knn.prepare_map(x, v)
+    r2 = np.inf if radius is None else radius ** 2
+    order = cuda_knn.spatial_order(q, radius or 1.0, qv)
+    keep = cuda_knn.plain_work_list(index, q, qv, order, r2).numpy()
+    T, ns = keep.shape
+    assert T == -(-len(queries) // cuda_knn.TILE) and ns == index.n_sub
+    o = order.numpy()
+    tile_of = np.empty(len(queries), int)
+    tile_of[o] = np.arange(len(queries)) // cuda_knn.TILE
+    sub_of = np.arange(len(xyz)) // cuda_knn.SUB_BLOCK
+    nonempty = np.bincount(sub_of[valid], minlength=ns) > 0
+    live_tile = np.bincount(tile_of[q_valid], minlength=T) > 0
+    assert not (keep & ~(nonempty[None, :] & live_tile[:, None])).any()
+    if radius is None:
+        np.testing.assert_array_equal(keep, nonempty[None, :] & live_tile[:, None])
+        return
+    d2 = ((queries[:, None, :] - xyz[None, :, :]) ** 2).sum(-1)
+    qi, si = np.nonzero((d2 <= r2) & q_valid[:, None] & valid[None, :])
+    need = np.zeros_like(keep)
+    need[tile_of[qi], sub_of[si]] = True
+    assert need.any() and not (need & ~keep).any()
+
+
+def test_spatial_order_is_morton_with_dead_last():
+    """The scan order: a stable sort of the 30-bit Morton code of each live
+    query's cell from the live queries' lower corner (bits interleaved x,
+    y, z from the lowest), dead queries last in row order."""
+    rng = np.random.default_rng(4)
+    Q, cell = 300, 5.0
+    queries = rng.uniform(-3000, 3000, (Q, 3)).astype(np.float32)   # some cells clamp
+    q_valid = rng.uniform(size=Q) < 0.7
+    queries[~q_valid] = np.nan                                      # dead rows: any value
+    got = cuda_knn.spatial_order(torch.from_numpy(queries), cell,
+                                 torch.from_numpy(q_valid)).numpy()
+    lo = queries[q_valid].min(0)
+    cells = np.clip(((queries[q_valid] - lo) * np.float32(1 / cell)).astype(np.int64), 0, 1023)
+    code = np.zeros(Q, np.int64)
+    for bit in range(10):
+        for axis in range(3):
+            code[q_valid] |= ((cells[:, axis] >> bit) & 1) << (3 * bit + axis)
+    code[~q_valid] = 2**31 - 1
+    np.testing.assert_array_equal(got, np.argsort(code, kind="stable"))
 
 
 def test_dispatch_cpu_plain_and_no_fallback():
