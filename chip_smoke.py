@@ -22,10 +22,15 @@ the CUDA toolkit. Phases, each printed as it goes:
    of 20 CUDA-event timings of the wrapper, of the C launch alone on a
    prepared order, of its CUDA-graph replay, of the plain version and of
    `torch.cdist` + `topk` (the library yardstick, two calls the port never
-   makes); each kernel's device time (profiler); the bound (9 FP32
-   operations per (live query, valid slot) pair whose 64-slot sub-block
-   lies within the radius, at 33.5 T/s) and the share of it; the scan
-   work of the busiest and the mean CTA (at most 2x, or it fails);
+   makes); each kernel's device time (profiler); the bound (`knn_bound`:
+   9 FP32 operations per (live query, valid slot) pair whose 64-slot
+   sub-block lies within the radius, at 33.5 T/s, or the bytes the
+   function must move at 3.35 TB/s, whichever is larger) and the share of
+   it; the scan
+   work of the busiest and the mean CTA (at most 2x, or it fails). The
+   edges also time the unpruned call the localization edges now make
+   (wrapper, C launch, replay) on the full and slice-fill maps, against
+   their bound: every live query against every valid slot at 9 operations;
 4. the slice: `Slam(cfg, device="cuda").add_frame` over 30 VLP-16 sweeps at
    the bench configuration, held against the JAX package's trajectory
    (lidarslam_tpu_torch/data/vlp16_bench_ref.npz, made by
@@ -41,7 +46,23 @@ the CUDA toolkit. Phases, each printed as it goes:
    `torch.cuda.set_sync_debug_mode("error")` (no host sync), one replay
    against the eager step from the same state, and a torch.profiler window
    over one full window of replays (each of the four k-NN kernels runs
-   exactly twice per frame inside the graph; their device ms/frame).
+   exactly twice per frame inside the graph; their device ms/frame);
+6. the full pipeline: `full_config()` (REFINED undistortion, ego-motion
+   registration after the extrapolation, LCP overlap on 8192 samples,
+   motion limits) on 30 sweeps rendered with motion distortion, through
+   `add_frame` and through `add_frame_async` + `flush`, each against its
+   JAX reference (vlp16_full_ref.npz, vlp16_full_stream_ref.npz): 0 failed,
+   every pose within 0.01 m / 5 deg, n_matches within 1% on every frame
+   with the min equal, overlap within 0.01, the same motion-limit flags
+   (the error against ground truth printed beside the reference's own).
+   Both paths are profiled; the stream's frame 17 runs eagerly under
+   `set_sync_debug_mode("error")` with every k-NN call's inputs kept, one
+   replay from the same state equals it, and a window of replays runs each
+   k-NN kernel 12 times per frame (4 ego rounds x 2 types, 2 localization,
+   2 overlap); the same window with registration off gives what the
+   gated ego rounds add. Each call shape of that step is then checked
+   against the plain version on its own inputs and timed (wrapper, C
+   launch, replay, plain, `cdist` + `topk`) beside its bound.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero before printing a result.
@@ -50,6 +71,7 @@ The last line is one JSON object: {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -60,6 +82,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_bench_ref.npz"
 STREAM_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_bench_stream_ref.npz"
+FULL_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_full_ref.npz"
+FULL_STREAM_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_full_stream_ref.npz"
 N_FRAMES = 30
 WINDOW = 8                  # bench_config's stream_window
 TIMED = range(9, 25)        # the stream's full windows of replays
@@ -101,16 +125,42 @@ def bench_config(rings: int, azimuth: int):
     )
 
 
-def render_frames(n: int):
+# full_config's motion limits, [m/s, deg/s] and [m/s2, deg/s2]: finite, and
+# met by the weaving-street drive (~2 m/s, yaw rate under ~11 deg/s)
+FULL_VELOCITY_LIMITS = (5.0, 45.0)
+FULL_ACCELERATION_LIMITS = (10.0, 90.0)
+
+
+def full_config():
+    """bench_config(16, 1800) with the rest of the single-LiDAR sweep
+    pipeline on: REFINED undistortion (as configs/slam_config_outdoor.yaml),
+    scan-to-scan ego-motion registration after the extrapolation, LCP overlap
+    on 8192 samples (a quarter of the 16 x 2048 range image) and motion
+    limits over a 0.5 s window."""
+    import dataclasses
+
+    from lidarslam_tpu_torch.config import (ConfidenceConfig, EgoMotionMode,
+                                            UndistortionMode)
+
+    return dataclasses.replace(
+        bench_config(16, 1800), undistortion=UndistortionMode.REFINED,
+        ego_motion_mode=EgoMotionMode.MOTION_EXTRAPOLATION_AND_REGISTRATION,
+        confidence=ConfidenceConfig(overlap_sampling_ratio=0.25, time_window_duration=0.5,
+                                    velocity_limits=FULL_VELOCITY_LIMITS,
+                                    acceleration_limits=FULL_ACCELERATION_LIMITS))
+
+
+def render_frames(n: int, motion_distortion: bool = False):
     """The bench's VLP-16 sequence: 16 rings x 1800 firings along the
-    street-corridor trajectory, no motion distortion (bench.py:232-239)."""
+    street-corridor trajectory (bench.py:232-239); `motion_distortion`
+    renders each firing at its own time along the drive."""
     from lidarslam_tpu_torch.io import synthetic
 
     sensor = synthetic.SensorModel(n_rings=16, n_azimuth=1800)
     return synthetic.generate_sequence(
         n_frames=n, sensor=sensor,
         trajectory=synthetic.weaving_street_trajectory(),
-        motion_distortion=False)
+        motion_distortion=motion_distortion)
 
 
 def pose_errors(got, ref):
@@ -285,6 +335,69 @@ def bound_pairs(index, queries, q_valid, radius: float) -> int:
     return int(((box <= radius * radius) * n_valid).sum())
 
 
+def knn_bound(index, q, q_valid, k: int, radius) -> dict:
+    """The least time the card could take for one k-NN call (radius None:
+    every live query against every valid slot), the larger of
+    - operations: bound_pairs' pairs x 9 FP32 operations over FP32_OPS_PER_S;
+    - bytes: what the function must read and write once over HBM_BYTES_PER_S:
+      the x, y, z of each valid slot and of each live query (12 B), one bit
+      per slot and per query for validity, and the outputs (d2, slot and
+      x, y, z: 20 B per (query, rank)). The index's +inf padding slots and
+      its sub-block boxes are the kernel's layout, not the function's input.
+    Returns us, pairs, bytes, the us of each side and which side sets it."""
+    pairs = bound_pairs(index, q, q_valid, float("inf") if radius is None else radius)
+    n_slots, n_queries = index.pts.shape[0], q.shape[0]
+    n_valid = int(index.pts[:, 0].isfinite().sum())
+    nbytes = (12 * (n_valid + int(q_valid.sum())) + -(-(n_slots + n_queries) // 8)
+              + 20 * n_queries * k)
+    ops_us = 1e6 * 9 * pairs / FP32_OPS_PER_S
+    bytes_us = 1e6 * nbytes / HBM_BYTES_PER_S
+    return {"us": max(ops_us, bytes_us), "pairs": pairs, "bytes": nbytes, "ops_us": ops_us,
+            "bytes_us": bytes_us, "by": "operations" if ops_us >= bytes_us else "bytes"}
+
+
+def _timings(index, q, q_valid, k: int, radius, plain_map=None) -> dict:
+    """Medians of 20 CUDA-event timings (ms) of one k-NN call: the wrapper
+    (kernel_knn), the C launch alone on the order kernel_knn would give the
+    queries, and that launch's CUDA-graph replay; with `plain_map` (xyz,
+    valid) also plain_knn and torch.cdist + topk (two calls the port never
+    makes) on the same inputs."""
+    import torch
+
+    from lidarslam_tpu_torch.ops import cuda_knn
+
+    r2 = float("inf") if radius is None else float(radius) ** 2
+    order = cuda_knn.spatial_order(q, 1.0 if radius is None else max(radius, 1e-3), q_valid)
+
+    def call():
+        return cuda_knn.launch(index, q, q_valid, order, k, r2)
+
+    out = {"ms": _median_ms(lambda: cuda_knn.kernel_knn(index, q, k, radius, q_valid)),
+           "launch_ms": _median_ms(call), "device_ms": _graph_ms(call)}
+    if plain_map is not None:
+        xyz, valid = plain_map
+        pts = index.pts[:, :3].contiguous()
+        out["plain_ms"] = _median_ms(lambda: cuda_knn.plain_knn(xyz, valid, q, k,
+                                                                q_valid=q_valid))
+        out["library_ms"] = _median_ms(lambda: torch.topk(
+            torch.cdist(q, pts, compute_mode="donot_use_mm_for_euclid_dist"), k,
+            largest=False))
+    return out
+
+
+def _unpruned_timing(label, index, q, q_valid, k, card):
+    """Wrapper, C launch and CUDA-graph replay of the call without a prune
+    radius (as the localization edges now run), with its bound."""
+    t = _timings(index, q, q_valid, k, None)
+    b = knn_bound(index, q, q_valid, k, None)
+    print(f"[kernel] {label} unpruned: wrapper {t['ms']:.4f} ms, C launch "
+          f"{t['launch_ms']:.4f} ms, graph replay {t['device_ms']:.4f} ms; bound {b['pairs']} "
+          f"pairs x 9 ops = {b['ops_us']:.2f} us (bytes {b['bytes']} = {b['bytes_us']:.2f} "
+          f"us), replay at {100 * b['us'] / (1000 * t['device_ms']):.1f}% of it ({card})",
+          flush=True)
+    return {**t, "bound_us": b["us"]}
+
+
 def _kernel_case(label, m, index, q, q_valid, k, card):
     """One (map, shape): the kernel against plain_knn and its plan against
     plain_work_list, the bound, the scan's work per CTA and the timings.
@@ -333,47 +446,32 @@ def _kernel_case(label, m, index, q, q_valid, k, card):
     given, scanned = run.stats[:, 0].float(), run.stats[:, 1].float()
 
     # the bound: 9 FP32 operations per pair that per-query sub-block pruning keeps
-    pairs = bound_pairs(index, q, q_valid, PRUNE_RADIUS)
-    ops_us = 1e6 * 9 * pairs / FP32_OPS_PER_S
-    nbytes = (sum(t.nbytes for t in index) + q.nbytes + q_valid.nbytes
-              + rd.nbytes + ri_.nbytes + rn.nbytes)
-    bytes_us = 1e6 * nbytes / HBM_BYTES_PER_S
-    bound_us = max(ops_us, bytes_us)
-
-    wrapper_ms = _median_ms(lambda: cuda_knn.kernel_knn(index, q, k, PRUNE_RADIUS, q_valid))
-    launch_ms = _median_ms(lambda: cuda_knn.launch(index, q, q_valid, order, k, r2))
-    device_ms = _graph_ms(lambda: cuda_knn.launch(index, q, q_valid, order, k, r2))
+    b = knn_bound(index, q, q_valid, k, PRUNE_RADIUS)
+    t = _timings(index, q, q_valid, k, PRUNE_RADIUS, plain_map=(m.xyz, m.valid))
     split = _kernel_split_us(lambda: cuda_knn.launch(index, q, q_valid, order, k, r2))
-    plain_ms = _median_ms(lambda: cuda_knn.plain_knn(m.xyz, m.valid, q, k, q_valid=q_valid))
-    pts = index.pts[:, :3].contiguous()
-    library_ms = _median_ms(lambda: torch.topk(
-        torch.cdist(q, pts, compute_mode="donot_use_mm_for_euclid_dist"), k,
-        largest=False))
     n_live = int(q_valid.sum())
     print(f"[kernel] {label} Q={len(q)} k={k}: exact without pruning; "
           f"{int(inside.sum())} within-radius neighbours kept; {n_live} live "
           f"queries; {beyond} of {n_live * k} live (query, rank) entries beyond the "
           f"radius differ from the exact scan", flush=True)
-    print(f"[kernel] {label}: wrapper {wrapper_ms:.4f} ms, C launch on a prepared order "
-          f"{launch_ms:.4f} ms, its graph replay {device_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library cdist+topk (two calls) {library_ms:.4f} ms "
+    print(f"[kernel] {label}: wrapper {t['ms']:.4f} ms, C launch on a prepared order "
+          f"{t['launch_ms']:.4f} ms, its graph replay {t['device_ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, library cdist+topk (two calls) {t['library_ms']:.4f} ms "
           f"(median of 20; {card})", flush=True)
     print(f"[kernel] {label}: device us per call by kernel (profiler, 10 calls): "
-          + ", ".join(f"{n} {t:.1f}" for n, t in split.items()), flush=True)
-    print(f"[kernel] {label}: bound {pairs} pairs x 9 ops = {ops_us:.2f} us "
-          f"(bytes {nbytes} = {bytes_us:.2f} us); graph replay at "
-          f"{100 * bound_us / (1000 * device_ms):.1f}% of it, C launch at "
-          f"{100 * bound_us / (1000 * launch_ms):.1f}%, wrapper at "
-          f"{100 * bound_us / (1000 * wrapper_ms):.1f}%", flush=True)
+          + ", ".join(f"{n} {us:.1f}" for n, us in split.items()), flush=True)
+    print(f"[kernel] {label}: bound {b['pairs']} pairs x 9 ops = {b['ops_us']:.2f} us "
+          f"(bytes {b['bytes']} = {b['bytes_us']:.2f} us); graph replay at "
+          f"{100 * b['us'] / (1000 * t['device_ms']):.1f}% of it, C launch at "
+          f"{100 * b['us'] / (1000 * t['launch_ms']):.1f}%, wrapper at "
+          f"{100 * b['us'] / (1000 * t['ms']):.1f}%", flush=True)
     print(f"[kernel] {label}: {int(run.start[-1])} (tile, sub-block) entries over "
           f"{len(given)} scan CTAs: given busiest {int(given.max())} / mean "
           f"{float(given.mean()):.2f}, scanned busiest {int(scanned.max())} / mean "
           f"{float(scanned.mean()):.2f}", flush=True)
     if float(given.max()) > 2 * float(given.mean()):
         raise AssertionError(f"{label}: busiest scan CTA above 2x the mean work")
-    return {"err": err, "ms": wrapper_ms, "launch_ms": launch_ms, "device_ms": device_ms,
-            "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_us": bound_us, "beyond": beyond}
+    return {"err": err, **t, "bound_us": b["us"], "beyond": beyond}
 
 
 def phase_kernel(frames, card: str):
@@ -406,6 +504,10 @@ def phase_kernel(frames, card: str):
         for name, Q, k in (("edges", 2048, 10), ("planes", 4096, 5)):
             q, q_valid = _queries(world, Q, rng, dev, on)
             rec = _kernel_case(f"{label} {name}", m, index, q, q_valid, k, card)
+            if name == "edges" and label != "ties":
+                # the localization edges scan unpruned on the path
+                rec["unpruned"] = _unpruned_timing(f"{label} {name}", index, q, q_valid,
+                                                   k, card)
             recs[(label, name)] = rec
             max_err = max(max_err, rec["err"])
     both = {key: recs[("full", "edges")][key] + recs[("full", "planes")][key]
@@ -416,12 +518,15 @@ def phase_kernel(frames, card: str):
           f"{both['launch_ms']:.4f} ms, graph replay {both['device_ms']:.4f} ms, bound "
           f"{both['bound_us']:.2f} us; slice-fill map: wrapper {fill_ms:.4f} ms ({card})",
           flush=True)
-    return {"max_abs_err": max_err, **both, "slice_fill_ms": fill_ms}
+    unpruned = {label: recs[(label, "edges")]["unpruned"] for label in ("full", "slice-fill")}
+    return {"max_abs_err": max_err, **both, "slice_fill_ms": fill_ms,
+            "edges_unpruned": unpruned}
 
 
-def _check_trajectory(tag, frames, results, ref):
-    """Poses against a JAX reference trajectory and the ground truth; no
-    failed frame. Returns the worst (m, deg) of each."""
+def _check_trajectory(tag, frames, results, ref, gate_gt=True):
+    """Poses against a JAX reference trajectory and the ground truth
+    (`gate_gt`: within GT_TOL); no failed frame. Returns the worst (m, deg)
+    of each."""
     import numpy as np
 
     from lidarslam_tpu_torch.core import se3
@@ -441,7 +546,7 @@ def _check_trajectory(tag, frames, results, ref):
         worst_gt = tuple(max(a, b) for a, b in zip(worst_gt, e_gt))
         if e_ref[0] > REF_TOL_M or e_ref[1] > REF_TOL_DEG:
             raise AssertionError(f"[{tag}] frame {i}: {e_ref} from the JAX reference")
-        if e_gt[0] > GT_TOL_M or e_gt[1] > GT_TOL_DEG:
+        if gate_gt and (e_gt[0] > GT_TOL_M or e_gt[1] > GT_TOL_DEG):
             raise AssertionError(f"[{tag}] frame {i}: {e_gt} from ground truth")
     n_failed = sum(bool(r["failure"]) for r in results)
     if n_failed:
@@ -664,6 +769,313 @@ def phase_stream(frames, card: str, sync: dict):
     return {"ms_frame": ms_frame, "calls": calls, **prof}
 
 
+# the k-NN calls of one step of full_config, in order: 4 ego rounds of
+# (edges, planes) against the previous sweep's keypoints, the localization
+# pair under reuse_knn, then the overlap 1-NN against each submap
+FULL_CALLS = ((("ego edges", 8), ("ego planes", 5)) * 4
+              + (("loc edges", 10), ("loc planes", 5), ("overlap, edge map", 1),
+                 ("overlap, plane map", 1)))
+OVERLAP_TOL = 0.01
+
+
+def _record_knn_calls(fn, keep_inputs=True):
+    """Run `fn` watching every k-NN launch: returns (fn's result, one entry
+    per launch in order), the entry a copy of the launch's inputs (index,
+    queries, q_valid, k, r2), or with `keep_inputs=False` its shape label."""
+    from lidarslam_tpu_torch.ops import cuda_knn
+
+    calls = []
+    real = cuda_knn.launch
+
+    def recording(index, queries, q_valid, order, k, r2):
+        if keep_inputs:
+            calls.append((cuda_knn.KnnIndex(*(t.clone() for t in index)), queries.clone(),
+                          q_valid.clone(), k, r2))
+        else:
+            radius = "" if r2 == float("inf") else f" r={r2 ** 0.5:g} m"
+            calls.append(f"Q={queries.shape[0]} k={k} slots={index.pts.shape[0]}{radius}")
+        return real(index, queries, q_valid, order, k, r2)
+
+    cuda_knn.launch = recording
+    try:
+        return fn(), calls
+    finally:
+        cuda_knn.launch = real
+
+
+def _path_call_case(label, per_frame, index, q, q_valid, k, r2, card):
+    """One k-NN call of the full path on the inputs the path gave it: the
+    kernel against plain_knn (bit-equal without a prune radius, equal within
+    it with one), its timings and its bound. Returns its record."""
+    import torch
+
+    from lidarslam_tpu_torch.ops import cuda_knn
+
+    radius = None if r2 == float("inf") else r2 ** 0.5
+    valid = index.pts[:, 0].isfinite()
+    xyz = torch.where(valid[:, None], index.pts[:, :3], 0.0)
+    kd, ki, kn = cuda_knn.kernel_knn(index, q, k, radius, q_valid)
+    pd, pi, pn = cuda_knn.plain_knn(xyz, valid, q, k, q_valid=q_valid)
+    torch.cuda.synchronize()
+    keep = torch.ones_like(pd, dtype=torch.bool) if radius is None \
+        else torch.isfinite(pd) & (pd <= r2)
+    if not (torch.equal(kd[keep], pd[keep]) and torch.equal(ki[keep], pi[keep])
+            and torch.equal(kn[keep], pn[keep])):
+        raise AssertionError(f"[full] {label}: kernel != plain on the path's inputs")
+    both = keep & torch.isfinite(pd)
+    err = float(torch.where(both, (kd - pd).abs(), 0.0).max())
+
+    t = _timings(index, q, q_valid, k, radius, plain_map=(xyz, valid))
+    b = knn_bound(index, q, q_valid, k, radius)
+    n_slots, n_valid = index.pts.shape[0], int(valid.sum())
+    print(f"[full] {label}: Q={q.shape[0]} ({int(q_valid.sum())} live) k={k} against "
+          f"{n_slots} slots ({n_valid} valid), radius "
+          f"{'none' if radius is None else f'{radius:g} m'}, {per_frame}x per frame: "
+          f"{'bit-equal to' if radius is None else 'within the radius equal to'} the plain "
+          f"scan; wrapper {t['ms']:.4f} ms, C launch {t['launch_ms']:.4f} ms, graph replay "
+          f"{t['device_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cdist+topk "
+          f"{t['library_ms']:.4f} ms; bound {b['pairs']} pairs x 9 ops = {b['ops_us']:.2f} us "
+          f"(bytes {b['bytes']} = {b['bytes_us']:.2f} us), replay at "
+          f"{100 * b['us'] / (1000 * t['device_ms']):.1f}% of it ({card})", flush=True)
+    return {"name": label, "Q": q.shape[0], "k": k, "map_slots": n_slots,
+            "radius": radius, "calls_per_frame": per_frame, "max_abs_err": err, **t,
+            "bound_ms": b["us"] / 1000.0, "bound_by": b["by"]}
+
+
+def _check_confidence(tag, results, ref):
+    """n_matches within 1% of JAX on every frame (min equal), overlap within
+    OVERLAP_TOL, the same motion-limit flags. Returns the largest overlap
+    difference."""
+    import numpy as np
+
+    n = [r["n_matches"] for r in results]
+    bad = [i for i, (a, b) in enumerate(zip(n, ref["n_matches"])) if abs(a - b) > 0.01 * b]
+    if bad:
+        raise AssertionError(f"[{tag}] n_matches off the JAX reference by > 1% at {bad}")
+    if min(n[1:]) != int(ref["n_matches"][1:].min()):
+        raise AssertionError(f"[{tag}] min n_matches {min(n[1:])} != JAX "
+                             f"{int(ref['n_matches'][1:].min())}")
+    d_ov = np.abs(np.array([r["overlap"] for r in results]) - ref["overlap"])
+    if d_ov.max() > OVERLAP_TOL:
+        raise AssertionError(f"[{tag}] overlap off JAX by {d_ov.max()} at frame "
+                             f"{int(d_ov.argmax())}")
+    flags = [bool(r["comply_motion_limits"]) for r in results]
+    if flags != [bool(x) for x in ref["comply_motion_limits"]]:
+        raise AssertionError(f"[{tag}] motion-limit flags {flags} differ from JAX's")
+    return float(d_ov.max())
+
+
+def _ref_gt_error(frames, ref):
+    """The JAX reference's own worst error against the ground truth."""
+    from lidarslam_tpu_torch.core import se3
+
+    gt0 = frames[0]["gt_pose"]
+    errs = [pose_errors(p, se3.hmat_inverse(gt0) @ f["gt_pose"])
+            for p, f in zip(ref["poses"], frames)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def phase_full(card: str):
+    """30 sweeps rendered with motion distortion at full_config through
+    add_frame and through add_frame_async + flush, each held against its
+    JAX reference; the stream's sync-free step, replay == eager, the k-NN
+    executions per replayed frame, and each k-NN call shape of the path on
+    its own inputs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lidarslam_tpu_torch import Slam
+    from lidarslam_tpu_torch.config import EgoMotionMode
+    from lidarslam_tpu_torch.core import se3
+    from lidarslam_tpu_torch.ops import cuda_knn, pipeline
+    from lidarslam_tpu_torch.ops.frame import build_range_image, flatten_packed
+    from lidarslam_tpu_torch.ops.stream_graph import clone_tree
+
+    t0 = time.perf_counter()
+    frames = render_frames(N_FRAMES, motion_distortion=True)
+    print(f"[full] rendered {len(frames)} VLP-16 sweeps with motion distortion in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = full_config()
+    ref, sref = np.load(FULL_REF_PATH), np.load(FULL_STREAM_REF_PATH)
+    ref_gt = _ref_gt_error(frames, ref)
+
+    # ---- add_frame
+    slam = Slam(cfg, device="cuda")
+    results, wall = [], []
+
+    def run_sync():
+        for f in frames:
+            t1 = time.perf_counter()
+            results.append(slam.add_frame(f))
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t1)
+
+    cuda_knn.LAUNCHES = 0
+    _, shapes_run = _record_knn_calls(run_sync, keep_inputs=False)
+    sync_launches = cuda_knn.LAUNCHES
+    if sync_launches != len(shapes_run):
+        raise AssertionError(f"[full] {sync_launches} counted k-NN launches, "
+                             f"{len(shapes_run)} seen")
+    sync_by_shape = dict(sorted(collections.Counter(shapes_run).items()))
+    worst_ref, worst_gt = _check_trajectory("full sync", frames, results, ref, gate_gt=False)
+    d_ov = _check_confidence("full sync", results, ref)
+    sync_ms = 1000 * statistics.median(wall[1:])
+    print(f"[full] sync: {len(frames)} frames, 0 failed, {sync_launches} k-NN launches "
+          f"{sync_by_shape}; median {sync_ms:.2f} ms/frame", flush=True)
+    print(f"[full] sync: min n_matches {min(r['n_matches'] for r in results[1:])} (JAX "
+          f"{int(ref['n_matches'][1:].min())}); max divergence from JAX {worst_ref[0]:.3e} m "
+          f"/ {worst_ref[1]:.3e} deg; overlap within {d_ov:.2e} of JAX's; motion-limit "
+          f"flags equal ({sum(not r['comply_motion_limits'] for r in results)} breaking); "
+          f"from ground truth {worst_gt[0]:.3e} m / {worst_gt[1]:.3e} deg (the JAX "
+          f"reference's own: {ref_gt[0]:.3e} m / {ref_gt[1]:.3e} deg)", flush=True)
+    if sync_launches == 0:
+        raise AssertionError("[full] the sync path launched no k-NN kernel")
+
+    slam = Slam(cfg, device="cuda")
+    for f in frames[:PROFILED.start]:
+        slam.add_frame(f)
+    cuda_knn.LAUNCHES = 0
+    prof = _profile(lambda: [slam.add_frame(frames[i]) for i in PROFILED], len(PROFILED))
+    if any(n != cuda_knn.LAUNCHES for n in prof["knn"].values()):
+        raise AssertionError(f"[full] sync profile: executions {prof['knn']} for "
+                             f"{cuda_knn.LAUNCHES} wrapper calls")
+    sync_prof = {**prof, "ms_frame": sync_ms}
+    print(f"[full] sync profiled frames {PROFILED.start}-{PROFILED.stop - 1}: device busy "
+          f"{prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} device kernels/frame, "
+          f"k-NN executions {prof['knn']} ({cuda_knn.LAUNCHES / len(PROFILED):.2f} calls "
+          f"per frame; the ego ICP exits early on a host read), k-NN {prof['knn_ms']:.4f} "
+          f"ms/frame", flush=True)
+
+    # ---- add_frame_async + flush
+    slam = Slam(cfg, device="cuda")
+    cuda_knn.LAUNCHES = 0
+    for i, f in enumerate(frames):
+        if i == TIMED.start:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        slam.add_frame_async(f)
+        if i == TIMED.stop - 1:
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+    results = slam.flush()
+    calls = cuda_knn.LAUNCHES
+    if slam._graph is None or slam._graph.graph is None:
+        raise AssertionError("[full] the stream never captured its CUDA graph")
+    if calls != len(FULL_CALLS) * (slam._graph.warmup_steps + 1):
+        raise AssertionError(f"[full] {calls} k-NN wrapper calls in the stream for "
+                             f"{slam._graph.warmup_steps} warm-up steps and 1 capture")
+    worst_sref, worst_sgt = _check_trajectory("full stream", frames, results, sref,
+                                              gate_gt=False)
+    d_sov = _check_confidence("full stream", results, sref)
+    stream_ms = 1000 * (t2 - t1) / len(TIMED)
+    print(f"[full] stream: {len(frames)} frames, 0 failed, {calls} Python k-NN calls "
+          f"({slam._graph.warmup_steps} warm-up steps and 1 capture, {len(FULL_CALLS)} "
+          f"each); {stream_ms:.2f} ms/frame over frames {TIMED.start}-{TIMED.stop - 1}",
+          flush=True)
+    print(f"[full] stream: min n_matches {min(r['n_matches'] for r in results[1:])} (JAX "
+          f"{int(sref['n_matches'][1:].min())}); max divergence from the JAX stream "
+          f"{worst_sref[0]:.3e} m / {worst_sref[1]:.3e} deg; overlap within {d_sov:.2e}; "
+          f"motion-limit flags equal; from ground truth {worst_sgt[0]:.3e} m / "
+          f"{worst_sgt[1]:.3e} deg", flush=True)
+
+    # frames 0-16 through the API, frame 17 by hand: the eager step (its k-NN
+    # inputs kept) under sync-debug "error", then one replay from the state
+    slam = Slam(cfg, device="cuda")
+    for f in frames[:PROFILED.start]:
+        slam.add_frame_async(f)
+    g = slam._graph
+    f = frames[PROFILED.start]
+    host = build_range_image(f["xyz"], f["intensity"], f["laser_id"], f["time"],
+                             cfg.extractor.n_rings, cfg.extractor.max_ring_points,
+                             packed=True, device=False)
+    record = g.wire.pack([flatten_packed(host, g.wire.capacity)],
+                         [np.float32(f["stamp"])]).to("cuda")[0]
+    flat, stamp = g.wire.unpack(record)
+    before = clone_tree(g.state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (_, packed_eager, _), path_calls = _record_knn_calls(
+            lambda: pipeline.process_frame_stream(flat, before, stamp, g.az, cfg,
+                                                  slam._map_cfgs_tuple, False))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    g.record.copy_(record)
+    g.graph.replay()
+    packed_graph = g._outputs[0].clone()
+    ue = pipeline.unpack_scalars(packed_eager.cpu().numpy()[:64])
+    ur = pipeline.unpack_scalars(packed_graph.cpu().numpy()[:64])
+    dt, dr = pose_errors(se3.pose_to_hmat(ur["pose"]), se3.pose_to_hmat(ue["pose"]))
+    if dt > REPLAY_TOL_M or dr > REPLAY_TOL_DEG or ue["total"] != ur["total"] \
+            or (ue["counts"] != ur["counts"]).any() or abs(ue["overlap"] - ur["overlap"]) > 1e-5:
+        raise AssertionError(f"[full] replay != eager step: {dt} m, {dr} deg, matches "
+                             f"{ur['total']} vs {ue['total']}, overlap {ur['overlap']} vs "
+                             f"{ue['overlap']}")
+    print(f"[full] eager step under set_sync_debug_mode('error'): no sync; replay vs eager: "
+          f"{dt:.3e} m / {dr:.3e} deg, matches {ur['total']} == {ue['total']}, overlap "
+          f"{ur['overlap']:.6f} / {ue['overlap']:.6f}", flush=True)
+    got = [(c[3], c[1].shape[0]) for c in path_calls]
+    if [c[3] for c in path_calls] != [k for _, k in FULL_CALLS]:
+        raise AssertionError(f"[full] the step's k-NN calls (k, Q) {got} are not FULL_CALLS")
+
+    window = range(PROFILED.start + 1, PROFILED.start + 1 + WINDOW)
+    prof = _profile(lambda: [slam.add_frame_async(frames[i]) for i in window], WINDOW)
+    if any(n != len(FULL_CALLS) * WINDOW for n in prof["knn"].values()):
+        raise AssertionError(f"[full] k-NN executions {prof['knn']} in {WINDOW} replays "
+                             f"(expected {len(FULL_CALLS)} per frame each)")
+    slam.flush()
+    print(f"[full] profiled window of {WINDOW} replays (frames {window.start}-"
+          f"{window.stop - 1}): k-NN executions {prof['knn']} ({len(FULL_CALLS)} per frame "
+          f"each); device busy {prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} device "
+          f"kernels/frame; k-NN {prof['knn_ms']:.4f} ms/frame "
+          f"({100 * prof['knn_ms'] / prof['busy_ms']:.2f}% of device busy)", flush=True)
+    print(f"[full-stream-vs-sync] {card}: stream {stream_ms:.2f} ms/frame, sync "
+          f"{sync_ms:.2f} ms/frame; device busy stream {prof['busy_ms']:.2f} / sync "
+          f"{sync_prof['busy_ms']:.2f} ms/frame; kernels/frame stream {prof['kernels']:.1f} "
+          f"/ sync {sync_prof['kernels']:.1f}; k-NN device ms/frame stream "
+          f"{prof['knn_ms']:.4f} / sync {sync_prof['knn_ms']:.4f}", flush=True)
+
+    # the same stream with registration off: what the 4 gated ego rounds add
+    no_ego = dataclasses.replace(cfg, ego_motion_mode=EgoMotionMode.MOTION_EXTRAPOLATION)
+    slam = Slam(no_ego, device="cuda")
+    for f in frames[:window.start]:
+        slam.add_frame_async(f)
+    prof_no_ego = _profile(lambda: [slam.add_frame_async(frames[i]) for i in window], WINDOW)
+    slam.flush()
+    print(f"[full] the same window with registration off: device busy "
+          f"{prof_no_ego['busy_ms']:.2f} ms/frame, {prof_no_ego['kernels']:.1f} device "
+          f"kernels/frame, k-NN {prof_no_ego['knn_ms']:.4f} ms/frame; the gated ego rounds "
+          f"add {prof['kernels'] - prof_no_ego['kernels']:.1f} kernels and "
+          f"{prof['busy_ms'] - prof_no_ego['busy_ms']:.2f} ms of device busy per frame "
+          f"({card})", flush=True)
+
+    # each call shape of the step, on the inputs the path gave it
+    shapes, seen = [], set()
+    labels = [label for label, _ in FULL_CALLS]
+    for (label, _), (index, q, q_valid, k, r2) in zip(FULL_CALLS, path_calls):
+        if label in seen:
+            continue
+        seen.add(label)
+        shapes.append(_path_call_case(label, labels.count(label), index, q, q_valid, k, r2,
+                                      card))
+    per_frame = {key: sum(s_[key] * s_["calls_per_frame"] for s_ in shapes)
+                 for key in ("ms", "launch_ms", "device_ms", "plain_ms", "library_ms",
+                             "bound_ms")}
+    print(f"[full] k-NN device ms per streamed frame by call shape (graph replay x calls): "
+          + ", ".join(f"{s_['name']} {s_['device_ms'] * s_['calls_per_frame']:.4f}"
+                      for s_ in shapes)
+          + f"; sum {per_frame['device_ms']:.4f} against the profiler's "
+          f"{prof['knn_ms']:.4f} ({card})", flush=True)
+    return {"sync_launches": sync_launches,
+            "sync_by_shape": sync_by_shape,
+            "stream_calls": calls, "stream_executions": prof["knn"],
+            "stream_knn_ms": prof["knn_ms"], "sync_knn_ms": sync_prof["knn_ms"],
+            "shapes": shapes, "per_frame": per_frame,
+            "max_abs_err": max(s_["max_abs_err"] for s_ in shapes)}
+
+
 def main() -> int:
     if not (ROOT / "lidarslam_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: lidarslam_tpu_torch/ not found beside this script; "
@@ -689,18 +1101,39 @@ def main() -> int:
     rec = phase_kernel(frames, card)
     sync = phase_slice(frames)
     stream = phase_stream(frames, card, sync)
+    full = phase_full(card)
+    pf = full["per_frame"]
+    # what sets the per-frame bound: the side holding most of it
+    by_ops = sum(s["bound_ms"] * s["calls_per_frame"] for s in full["shapes"]
+                 if s["bound_by"] == "operations")
+    bound_by = "operations" if 2 * by_ops >= pf["bound_ms"] else "bytes"
+    # the headline numbers: one streamed frame of full_config, its 12 k-NN
+    # calls summed (each shape's own numbers under "shapes")
     print(json.dumps({"kernels": [{
         "name": "knn", "route": "cuda", "source": "lidarslam_tpu_torch/csrc/knn.cu",
         "replaces": "lidarslam_tpu/ops/pallas_knn.py:121",
-        "launches": sync["launches"], "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-        "bound_ms": rec["bound_us"] / 1000.0, "bound_by": "operations",
-        "library_ms": rec["library_ms"], "bound_us": rec["bound_us"],
-        "launch_ms": rec["launch_ms"], "device_ms": rec["device_ms"],
-        "slice_fill_ms": rec["slice_fill_ms"],
-        "stream_knn_device_ms_per_frame": stream["knn_ms"],
-        "sync_knn_device_ms_per_frame": sync["knn_ms"],
-        "stream_wrapper_calls": stream["calls"], "stream_executions": stream["knn"],
+        "launches": full["sync_launches"],
+        "max_abs_err": max(rec["max_abs_err"], full["max_abs_err"]),
+        "ms": pf["ms"], "plain_ms": pf["plain_ms"], "bound_ms": pf["bound_ms"],
+        "bound_by": bound_by, "library_ms": pf["library_ms"],
+        "per": f"one streamed frame of full_config ({len(FULL_CALLS)} calls)",
+        "launch_ms": pf["launch_ms"], "device_ms": pf["device_ms"],
+        "shapes": full["shapes"],
+        "launches_by_path": {"bench sync": sync["launches"],
+                             "bench stream (Python calls)": stream["calls"],
+                             "full sync": full["sync_launches"],
+                             "full stream (Python calls)": full["stream_calls"]},
+        "full_sync_launches_by_shape": full["sync_by_shape"],
+        "bench_full_map": {"ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                           "library_ms": rec["library_ms"], "bound_us": rec["bound_us"],
+                           "launch_ms": rec["launch_ms"], "device_ms": rec["device_ms"],
+                           "slice_fill_ms": rec["slice_fill_ms"],
+                           "edges_unpruned": rec["edges_unpruned"]},
+        "stream_knn_device_ms_per_frame": {"bench": stream["knn_ms"],
+                                           "full": full["stream_knn_ms"]},
+        "sync_knn_device_ms_per_frame": {"bench": sync["knn_ms"],
+                                         "full": full["sync_knn_ms"]},
+        "stream_executions": {"bench": stream["knn"], "full": full["stream_executions"]},
         "stream_frames_profiled": WINDOW}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

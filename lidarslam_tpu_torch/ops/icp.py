@@ -1,5 +1,4 @@
-"""Match -> optimize ICP loop (PyTorch port of `lidarslam_tpu/ops/icp.py`,
-`UndistortionMode.NONE`).
+"""Match -> optimize ICP loop (PyTorch port of `lidarslam_tpu/ops/icp.py`).
 
 `icp_iters` rounds of (match every keypoint type, robust LM) with a linearly
 shrinking Tukey saturation distance (Slam.cxx:892-954, 1071-1156). The
@@ -18,6 +17,12 @@ one of two forms with bit-identical results:
 With `MatchingConfig.reuse_knn` the map k-NN runs once, in round 0, and later
 rounds reuse the neighbour coordinates with exact distances against the
 refined pose: one kernel launch per keypoint type per frame.
+
+Undistortion (ONCE / REFINED) warps the raw keypoints by the sweep motion
+(`undistortion.compute_warp`) before they are matched: ONCE keeps the warp
+of the prior pose for every round, REFINED rebuilds it from the current
+pose from round 1 on. The final warp (of the last pose under REFINED) is
+returned for the map update.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 from lidarslam_tpu_torch.config import (Keypoint, MatchingConfig, SolverConfig,
                                         UndistortionMode)
 from lidarslam_tpu_torch.core import se3
-from lidarslam_tpu_torch.ops import matcher, solver, voxel_map
+from lidarslam_tpu_torch.ops import matcher, solver, undistortion, voxel_map
 
 
 class ICPInputs(NamedTuple):
@@ -39,6 +44,7 @@ class ICPInputs(NamedTuple):
     kp_xyz: tuple       # (Q, 3) per type, BASE coordinates
     kp_valid: tuple     # (Q,) per type
     index: tuple        # SubmapView per type
+    kp_time: tuple = (None, None, None)  # (Q,) per type, for undistortion
 
 
 class ICPResult(NamedTuple):
@@ -49,6 +55,7 @@ class ICPResult(NamedTuple):
     H: torch.Tensor               # (6, 6) robust Hessian at the last solve
     statuses: tuple               # (Q,) uint8 per type — last-round debug codes
     weights: tuple                # (Q,) f32 per type
+    warp: object = None           # final WarpParams (None when not undistorting)
 
 
 _MATCH_FNS = {Keypoint.EDGE: matcher.match_edges,
@@ -67,13 +74,16 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
                  params: MatchingConfig, solver_cfg: SolverConfig, icp_iters: int,
                  lm_max_iter: int, min_matches: int, prepared=None,
                  undistort_mode: UndistortionMode = UndistortionMode.NONE,
-                 extras=(), gated: bool = False) -> ICPResult:
+                 prev_pose=None, t_prev=None, t_cur=None, time_range=None,
+                 max_extrapolation_ratio: float = 3.0, extras=(),
+                 gated: bool = False, prune_radii=(None, None, None)) -> ICPResult:
     """Run the ICP-LM loop from `pose0`. `prepared`: per-type
     `cuda_knn.KnnIndex` (built here when missing on CUDA). `gated`: run
-    every round with no host read (see module docstring)."""
-    if undistort_mode != UndistortionMode.NONE:
-        raise NotImplementedError("undistortion is not ported yet "
-                                  "(ROADMAP.md, Queue 1: undistortion)")
+    every round with no host read (see module docstring). Undistortion
+    needs `prev_pose`, the stamps `t_prev`, `t_cur` and the sweep's point
+    `time_range` (time0, time1), all () float32 tensors. `prune_radii`: per
+    type, the radius beyond which the kernel may skip map sub-blocks (None:
+    the exact scan; `matcher.knn_radius`)."""
     for t in types:
         if t not in _MATCH_FNS:
             raise NotImplementedError(f"{t.name} matching is not ported yet "
@@ -90,6 +100,14 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
     weights = tuple(torch.zeros(inputs.kp_xyz[int(t)].shape[0], dtype=torch.float32,
                                 device=dev) for t in types)
 
+    undistort = undistort_mode != UndistortionMode.NONE and prev_pose is not None
+
+    def make_warp(p):
+        return undistortion.compute_warp(prev_pose, p, t_prev, t_cur, time_range[0],
+                                         time_range[1], max_extrapolation_ratio)
+
+    prior_warp = make_warp(pose) if undistort else None
+
     prepared = list(prepared) if prepared is not None else [None, None, None]
     for t in types:
         if prepared[int(t)] is None:
@@ -103,20 +121,30 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
     for it in range(icp_iters):
         sat = torch.full((), saturation_schedule(it, icp_iters, params),
                          dtype=torch.float32, device=dev)
+        xs = list(inputs.kp_xyz)
+        if undistort:
+            # REFINED: the JAX loop's where(it > 0, make_warp(pose), prior)
+            warp = make_warp(pose) if undistort_mode == UndistortionMode.REFINED \
+                and it > 0 else prior_warp
+            for t in types:
+                xs[int(t)] = undistortion.warp_points(xs[int(t)], inputs.kp_time[int(t)],
+                                                      warp)
         if reuse and it == 0:
             knn_cache = []
             for t in types:
                 ti = int(t)
-                world = se3.japply_pose(pose, inputs.kp_xyz[ti])
-                _, nbr, found = matcher.knn_query(inputs.index[ti], world, k_of[t],
-                                                  params, inputs.kp_valid[ti],
-                                                  prepared[ti])
-                knn_cache.append((nbr, found))
+                world = se3.japply_pose(pose, xs[ti])
+                need_rings = t == Keypoint.EDGE and params.single_edge_per_ring
+                _, nbr, rings, found = matcher.knn_query(
+                    inputs.index[ti], world, k_of[t], prune_radii[ti],
+                    inputs.kp_valid[ti], prepared[ti], need_rings=need_rings)
+                knn_cache.append((nbr, rings, found))
 
-        blocks = [_MATCH_FNS[t](inputs.kp_xyz[int(t)], inputs.kp_valid[int(t)],
+        blocks = [_MATCH_FNS[t](xs[int(t)], inputs.kp_valid[int(t)],
                                 inputs.index[int(t)], pose, params,
                                 prepared=prepared[int(t)],
-                                knn=knn_cache[i] if reuse else None)
+                                knn=knn_cache[i] if reuse else None,
+                                prune_radius=prune_radii[int(t)])
                   for i, t in enumerate(types)]
 
         it_counts = torch.stack([b.n_matches.to(torch.int32) for b in blocks])
@@ -143,5 +171,10 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
         if not gated and not bool(active):   # host read: the early exit
             break
 
+    final_warp = None
+    if undistort:
+        final_warp = make_warp(pose) if undistort_mode == UndistortionMode.REFINED \
+            else prior_warp
     return ICPResult(pose=pose, failed=failed, total_matches=total,
-                     match_counts=counts, H=H, statuses=statuses, weights=weights)
+                     match_counts=counts, H=H, statuses=statuses, weights=weights,
+                     warp=final_warp)

@@ -1,5 +1,5 @@
 """Batched keypoint -> map-model matching (PyTorch port of
-`lidarslam_tpu/ops/matcher.py`, localization subset).
+`lidarslam_tpu/ops/matcher.py`, edges and planes).
 
 Per keypoint type one batched pipeline over the fixed keypoint capacity:
 k-NN, masked neighbourhood PCA, the validity gates and the Mahalanobis
@@ -7,14 +7,15 @@ residual parameters (KeypointsMatcher.cxx:33-480):
 
 - edges, localization mode: 2-point RANSAC line neighbours
   (GetRansacLineNeighbors 408-480) as a dense (k-1)x(k-1) inlier matrix;
-  line model A = I - n n^T (BuildLineMatch 106-187);
+  ego-motion mode: one neighbour per ring, the closest neighbour's ring
+  excluded (GetPerRingLineNeighbors 349-405); line model A = I - n n^T
+  (BuildLineMatch 106-187);
 - planes: planarity gate l1/l2 >= threshold, model A = n n^T
   (BuildPlaneMatch 190-273).
 
 Each match yields (A, P, X, weight, status): the solver's residual is
 w * A @ (R X + t - P) with w = 1 - sqrt(mse)/max_model_error, and status is
-a MatchStatus rejection code. The ego-motion per-ring edge filter and blob
-matching are not ported yet.
+a MatchStatus rejection code. Blob matching is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from lidarslam_tpu_torch.config import MatchingConfig, MatchStatus
+from lidarslam_tpu_torch.config import Keypoint, MatchingConfig, MatchStatus
 from lidarslam_tpu_torch.core import pca, se3
 from lidarslam_tpu_torch.ops.voxel_map import SubmapView, brute_knn
 
@@ -69,27 +70,41 @@ def _finish(A6, P, X, weight, ok, status):
     )
 
 
-def _knn(index: SubmapView, world, k, params: MatchingConfig, q_valid=None,
-         prepared=None):
-    """Neighbour search. Returns (d2 (Q,k), nbr (Q,k,3), found (Q,k)).
-    On the kernel path map sub-blocks beyond the neighbour gate are skipped:
-    every neighbour within the gate comes back as in the exact scan, but
-    which slots beyond it come back (or none) may differ, and that can change
-    a match of either type. For edges `near` reads only the RANSAC
-    selection, so a different beyond-gate slot can enter it. Under
-    `reuse_knn` the round-0 neighbours are cached and their distances
-    recomputed at each later round's pose (`_reuse_d2`), so a beyond-gate
-    neighbour the exact scan keeps can move inside the gate; where the
-    kernel returned none, the query lacks it in every round."""
-    d2, _, nbr = brute_knn(index, world, k,
-                           prune_radius=float(params.max_neighbors_distance),
-                           q_valid=q_valid, prepared=prepared)
-    return d2, nbr, torch.isfinite(d2)
+def _knn(index: SubmapView, world, k, prune_radius, q_valid=None, prepared=None,
+         need_rings=False):
+    """Neighbour search. Returns (d2 (Q,k), nbr (Q,k,3), rings (Q,k) or
+    None, found (Q,k)). `rings` are the ring ids of the returned slots
+    (`need_rings`, the ego-motion edge filter); a missing neighbour comes
+    back as slot 0, so its ring is slot 0's and only `found` masks it.
+    `prune_radius` skips, on the kernel path, map sub-blocks beyond it (the
+    plain scan ignores it): every neighbour within it comes back as in the
+    exact scan, but which slots beyond it come back may differ (`knn_radius`
+    says which searches may prune)."""
+    d2, idx, nbr = brute_knn(index, world, k, prune_radius=prune_radius,
+                             q_valid=q_valid, prepared=prepared)
+    rings = index.ring[idx.long()] if need_rings else None
+    return d2, nbr, rings, torch.isfinite(d2)
 
 
 # public alias: the ICP loop's reuse_knn mode queries neighbours itself in
-# round 0 and hands the cached (nbr, found) back into match_*
+# round 0 and hands the cached (nbr, rings, found) back into match_*
 knn_query = _knn
+
+
+def knn_radius(kind: Keypoint, params: MatchingConfig):
+    """The kernel's prune radius for one keypoint type's localization k-NN
+    against a leaf-sorted submap (None: the exact scan).
+
+    Edges scan unpruned: their `near` gate reads only the neighbours the
+    filter selected (RANSAC inliers, or one per ring), so a beyond-radius
+    slot that a pruned scan returns differently from the exact scan can
+    enter the selection and change the match (and, under `reuse_knn`, be
+    re-posed inside the gate in a later round). Unpruned, the kernel
+    returns exactly what the exact scan — and the JAX package's CPU
+    reference — returns. Planes prune at the neighbour gate: their `near`
+    reads every found neighbour, so a beyond-gate neighbour fails it
+    whichever slot it is."""
+    return None if kind == Keypoint.EDGE else float(params.max_neighbors_distance)
 
 
 def _reuse_d2(world, nbr, found):
@@ -102,15 +117,16 @@ def _reuse_d2(world, nbr, found):
 
 
 def match_planes(kp_xyz, kp_valid, index: SubmapView, pose, params: MatchingConfig,
-                 prepared=None, knn=None):
+                 prepared=None, knn=None, prune_radius=None):
     """Point-to-plane matches (BuildPlaneMatch semantics). `knn`: cached
-    (nbr, found) from a previous round (reuse_knn mode)."""
+    (nbr, rings, found) from a previous round (reuse_knn mode);
+    `prune_radius`: the kernel's (None: the exact scan; `knn_radius`)."""
     k = params.plane_nb_neighbors
     world = se3.japply_pose(pose, kp_xyz)
     if knn is None:
-        d2, nbr, found = _knn(index, world, k, params, kp_valid, prepared)
+        d2, nbr, _, found = _knn(index, world, k, prune_radius, kp_valid, prepared)
     else:
-        nbr, found = knn
+        nbr, _, found = knn
         d2 = _reuse_d2(world, nbr, found)
 
     n_found = torch.sum(found, dim=1)
@@ -140,22 +156,25 @@ def match_planes(kp_xyz, kp_valid, index: SubmapView, pose, params: MatchingConf
 
 
 def match_edges(kp_xyz, kp_valid, index: SubmapView, pose, params: MatchingConfig,
-                prepared=None, knn=None):
-    """Point-to-line matches with the localization RANSAC neighbour filter.
-    `knn`: cached (nbr, found) from a previous round (reuse_knn)."""
-    if params.single_edge_per_ring:
-        raise NotImplementedError(
-            "single_edge_per_ring (ego-motion per-ring edge filter) is not "
-            "ported yet (ROADMAP.md, Queue 1: ego REGISTRATION)")
+                prepared=None, knn=None, prune_radius=None):
+    """Point-to-line matches; the neighbour filter per
+    `params.single_edge_per_ring` (ego-motion: one neighbour per ring;
+    localization: RANSAC). `knn`: cached (nbr, rings, found) from a previous
+    round (reuse_knn); `prune_radius`: as in `match_planes`."""
     k = params.edge_nb_neighbors
+    per_ring = params.single_edge_per_ring
     world = se3.japply_pose(pose, kp_xyz)
     if knn is None:
-        d2, nbr, found = _knn(index, world, k, params, kp_valid, prepared)
+        d2, nbr, rings, found = _knn(index, world, k, prune_radius, kp_valid, prepared,
+                                     need_rings=per_ring)
     else:
-        nbr, found = knn
+        nbr, rings, found = knn
         d2 = _reuse_d2(world, nbr, found)
 
-    sel = _ransac_line_filter(nbr, found, params.edge_max_model_error)
+    if per_ring:
+        sel = _per_ring_filter(rings, found)
+    else:
+        sel = _ransac_line_filter(nbr, found, params.edge_max_model_error)
     n_sel = torch.sum(sel, dim=1)
     enough = kp_valid & (n_sel >= params.edge_min_nb_neighbors)
     far_sel = torch.where(sel, d2, 0.0).amax(dim=1)
@@ -178,6 +197,21 @@ def match_edges(kp_xyz, kp_valid, index: SubmapView, pose, params: MatchingConfi
                            [(finite, MatchStatus.INVALID_NUMERICAL),
                             (mse_ok, MatchStatus.MSE_TOO_LARGE)])
     return _finish(A, mean, kp_xyz, weight, ok, status)
+
+
+def _per_ring_filter(rings, found):
+    """One neighbour per ring, the closest neighbour's ring excluded, rings
+    beyond +-4 of it excluded (GetPerRingLineNeighbors 349-405).
+    Neighbours arrive in ascending-distance order."""
+    k = rings.shape[1]
+    r0 = rings[:, 0:1]
+    allowed = found & (torch.abs(rings - r0) <= 4) & (rings != r0)
+    # first occurrence of each ring among the allowed neighbours
+    ar = torch.arange(k, device=rings.device)
+    same_ring_before = (rings[:, :, None] == rings[:, None, :]) \
+        & (ar[None, :] < ar[:, None])[None, :, :]
+    taken = torch.any(same_ring_before & allowed[:, None, :], dim=2)
+    return allowed & ~taken
 
 
 def _ransac_line_filter(nbr, found, max_dist_inlier):

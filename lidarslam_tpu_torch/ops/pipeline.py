@@ -1,29 +1,33 @@
 """The per-sweep step and the streaming step (PyTorch port of
 `lidarslam_tpu/ops/pipeline.py`, single-LiDAR subset).
 
-`process_frame` runs keypoint extraction, scan-to-map localization ICP, the
-keyframe gate and the rolling-map update for one sweep. Where the JAX
-package decides on device with `lax.cond` / `while_loop`, this port has two
-forms of `process_keypoints`:
+`process_frame` runs keypoint extraction, the optional scan-to-scan
+ego-motion ICP, scan-to-map localization ICP (with ONCE / REFINED
+undistortion), the LCP overlap, the keyframe gate and the rolling-map update
+for one sweep. Where the JAX package decides on device with `lax.cond` /
+`while_loop`, this port has two forms of `process_keypoints`:
 
 - synchronous (`Slam.add_frame`): host branches. The submap rebuild
   (`SubmapCache`) runs when the host-side `cache_stale` flag says the map
-  changed since the last rebuild; the ICP exits early on a host read; the
-  keyframe gate travels in the frame's one transfer of packed scalars
-  (`pack_scalars`) and the map update is issued after it. A keyframe then
-  reads the maps' post-insert overflow counts in a second small transfer.
+  changed since the last rebuild; both ICP loops (ego-motion and
+  localization) exit early on a host read; the keyframe gate travels in the
+  frame's one transfer of packed scalars (`pack_scalars`) and the map
+  update is issued after it. A keyframe then reads the maps' post-insert
+  overflow counts in a second small transfer.
 - `sync_free=True` (the streaming step): no host read. The submap rebuild
   and the map update are computed every frame and `torch.where`-selected on
-  the device flags, the ICP runs its gated form, and the packed scalars
-  stay on the device. `_stream_step` chains the device `StreamState` from
-  frame to frame, so a CUDA graph can capture it (ops/stream_graph.py).
+  the device flags, both ICP loops run every round, gated, and the packed
+  scalars stay on the device. `_stream_step` chains the device
+  `StreamState` from frame to frame, so a CUDA graph can capture it
+  (ops/stream_graph.py).
 
 Both forms compute the keyframe thresholds from the keyframe counter on the
 device, and the covariance by a Jacobi pseudo-inverse (solver.py).
 
-Ego-motion REGISTRATION, undistortion, overlap estimation, sensor
-constraints, the multi-LiDAR streaming step and the multi-chip branches are
-not ported yet; each raises if its configuration asks for it.
+Blobs, map decay (`clear_old_points`), CENTROID / CENTER_POINT leaf
+sampling, sensor constraints, the multi-LiDAR entry points and the
+multi-chip branches are not ported yet; each raises if its configuration
+asks for it.
 """
 
 from __future__ import annotations
@@ -33,10 +37,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from lidarslam_tpu_torch import confidence
 from lidarslam_tpu_torch.config import (EgoMotionMode, Keypoint, SlamConfig,
                                         UndistortionMode)
 from lidarslam_tpu_torch.core import se3
-from lidarslam_tpu_torch.ops import extractor, icp, solver, undistortion, voxel_map
+from lidarslam_tpu_torch.ops import extractor, icp, matcher, solver, undistortion, voxel_map
 from lidarslam_tpu_torch.ops.frame import (FlatRangeImage, Keypoints, ensure_range_image,
                                            flatten_keypoints)
 
@@ -58,6 +63,7 @@ class FrameInputs(NamedTuple):
 
     trel_prior: torch.Tensor     # (6,) extrapolated ego-motion prior
     prev_pose: torch.Tensor      # (6,) previous world pose, MAP frame
+    t_prev: object               # previous frame stamp
     stamp: object                # current frame stamp
     az_resolution: object        # extractor azimuthal resolution [rad]
     kf_last_pose: torch.Tensor   # (6,) last keyframe pose, MAP frame
@@ -78,6 +84,8 @@ class FrameResult(NamedTuple):
     covariance: torch.Tensor     # (6, 6)
     roll_offset: torch.Tensor    # (3,) int32 — shared window shift applied
     is_keyframe: torch.Tensor    # () bool — the map was updated
+    overlap: torch.Tensor        # () LCP overlap (-1 when disabled)
+    warp: object                 # final WarpParams or None
     statuses: tuple              # (Q,) uint8 per used type
     weights: tuple               # (Q,) f32 per used type
     packed: object               # (64,) pack_scalars: a host copy (numpy) on
@@ -136,15 +144,6 @@ def init_submap_cache(cfg: SlamConfig, map_cfgs, device):
 
 def check_supported(cfg: SlamConfig):
     """Raise for configurations whose branches are not ported yet."""
-    if cfg.ego_motion_mode in (EgoMotionMode.REGISTRATION,
-                               EgoMotionMode.MOTION_EXTRAPOLATION_AND_REGISTRATION):
-        raise NotImplementedError("ego-motion REGISTRATION is not ported yet "
-                                  "(ROADMAP.md, Queue 1)")
-    if cfg.undistortion != UndistortionMode.NONE:
-        raise NotImplementedError("undistortion is not ported yet (ROADMAP.md, Queue 1)")
-    if cfg.confidence.overlap_sampling_ratio > 0:
-        raise NotImplementedError("overlap estimation is not ported yet "
-                                  "(ROADMAP.md, Queue 1)")
     if cfg.use_blobs:
         raise NotImplementedError("blob keypoints are not ported yet (ROADMAP.md, Queue 1)")
     if any(cfg.map_config(t).decaying_threshold > 0 for t in cfg.used_types):
@@ -153,13 +152,15 @@ def check_supported(cfg: SlamConfig):
         voxel_map._check_sampling(cfg.map_config(t).sampling)
 
 
-def process_frame(ri, maps: tuple, inp: FrameInputs, cfg: SlamConfig,
-                  map_cfgs: tuple, first_frame: bool) -> FrameResult:
-    """Full per-sweep step from a range image (or one of its wires)."""
+def process_frame(ri, maps: tuple, prev_keypoints: tuple, inp: FrameInputs,
+                  cfg: SlamConfig, map_cfgs: tuple, first_frame: bool) -> FrameResult:
+    """Full per-sweep step from a range image (or one of its wires);
+    `prev_keypoints`: the previous sweep's Keypoints per type (ego-motion
+    registration's target)."""
     ri = ensure_range_image(ri)
     ext = extractor.extract_keypoints(ri, inp.az_resolution, cfg.extractor)
-    return process_keypoints((ext.edges, ext.planes, ext.blobs), maps, inp, cfg,
-                             map_cfgs, first_frame)
+    return process_keypoints((ext.edges, ext.planes, ext.blobs), ri, maps, prev_keypoints,
+                             inp, cfg, map_cfgs, first_frame)
 
 
 def _bbox(world, valid):
@@ -169,17 +170,27 @@ def _bbox(world, valid):
     return lo, hi
 
 
-def process_keypoints(kps: tuple, maps: tuple, inp: FrameInputs, cfg: SlamConfig,
-                      map_cfgs: tuple, first_frame: bool,
-                      sync_free: bool = False) -> FrameResult:
-    """Per-sweep step from already-extracted keypoints. `sync_free`: the
-    streaming form, with no host read (see module docstring)."""
+def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
+                      inp: FrameInputs, cfg: SlamConfig, map_cfgs: tuple,
+                      first_frame: bool, sync_free: bool = False) -> FrameResult:
+    """Per-sweep step from already-extracted keypoints; `ri` (a RangeImage,
+    or None) is sampled for the overlap. `sync_free`: the streaming form,
+    with no host read (see module docstring)."""
     check_supported(cfg)
     types = cfg.used_types
     dev = inp.prev_pose.device
+
+    # ---------------- ego-motion registration (optional) ----------------
     trel = inp.trel_prior
+    if cfg.ego_motion_mode in (EgoMotionMode.REGISTRATION,
+                               EgoMotionMode.MOTION_EXTRAPOLATION_AND_REGISTRATION) \
+            and prev_keypoints is not None and not first_frame:
+        trel = _ego_registration(kps, prev_keypoints, trel, cfg, sync_free)
+
     loc_prior = se3.jcompose_pose(inp.prev_pose, trel)
     new_cache = list(inp.submap_cache)
+    warp = None
+    overlap = torch.full((), -1.0, device=dev)
 
     # ---------------- localization ----------------
     if first_frame:
@@ -218,14 +229,25 @@ def process_keypoints(kps: tuple, maps: tuple, inp: FrameInputs, cfg: SlamConfig
                 prepared[ti] = new_cache[ti].index
             index[ti] = view
 
+        undist_kwargs = {}
+        if cfg.undistortion != UndistortionMode.NONE:
+            undist_kwargs = dict(
+                undistort_mode=cfg.undistortion, prev_pose=inp.prev_pose,
+                t_prev=voxel_map.device_f32(inp.t_prev, dev),
+                t_cur=voxel_map.device_f32(inp.stamp, dev),
+                time_range=_time_range(kps, types, dev),
+                max_extrapolation_ratio=cfg.max_extrapolation_ratio)
         res = icp.icp_register(
             icp.ICPInputs(kp_xyz=tuple(k.xyz for k in kps),
-                          kp_valid=tuple(k.valid for k in kps), index=tuple(index)),
+                          kp_valid=tuple(k.valid for k in kps), index=tuple(index),
+                          kp_time=tuple(k.time for k in kps)),
             types=types, pose0=loc_prior, params=cfg.loc_matching,
             solver_cfg=cfg.solver, icp_iters=cfg.localization_icp_max_iter,
             lm_max_iter=cfg.localization_lm_max_iter,
             min_matches=cfg.min_nb_matched_keypoints, prepared=tuple(prepared),
-            gated=sync_free)
+            gated=sync_free,
+            prune_radii=tuple(matcher.knn_radius(t, cfg.loc_matching) for t in Keypoint),
+            **undist_kwargs)
 
         failed = res.failed
         pose = torch.where(failed, inp.prev_pose, res.pose)  # rollback (Slam.cxx:1098-1107)
@@ -234,7 +256,10 @@ def process_keypoints(kps: tuple, maps: tuple, inp: FrameInputs, cfg: SlamConfig
         cov = torch.where(failed, 0.0, solver.pose_covariance(res.H))
         statuses = res.statuses
         wts = res.weights
+        warp = res.warp
         trel = torch.where(failed, 0.0, _relative_pose(inp.prev_pose, pose))
+        if cfg.confidence.overlap_sampling_ratio > 0 and ri is not None:
+            overlap = _overlap(ri, pose, index, cfg, map_cfgs, warp, prepared)
 
     # ---------------- keyframe gate ----------------
     kf_motion = _relative_pose(inp.kf_last_pose, pose)
@@ -258,7 +283,8 @@ def process_keypoints(kps: tuple, maps: tuple, inp: FrameInputs, cfg: SlamConfig
     bbox_max = torch.full((3,), -3e38, dtype=torch.float32, device=dev)
     for t in types:
         kp = kps[int(t)]
-        w = se3.japply_pose(pose, kp.xyz)
+        base = kp.xyz if warp is None else undistortion.warp_points(kp.xyz, kp.time, warp)
+        w = se3.japply_pose(pose, base)
         world_kp[int(t)] = w
         lo, hi = _bbox(w, kp.valid)
         bbox_min = torch.minimum(bbox_min, lo)
@@ -276,7 +302,6 @@ def process_keypoints(kps: tuple, maps: tuple, inp: FrameInputs, cfg: SlamConfig
                                     inp.stamp, map_cfgs[ti], fixed=False)
 
     kp_counts = torch.stack([kps[i].count for i in range(3)])
-    overlap = torch.full((), -1.0, device=dev)
     new_maps = list(maps)
     if sync_free:
         # the JAX package's lax.cond on do_update: computed every frame and
@@ -307,8 +332,63 @@ def process_keypoints(kps: tuple, maps: tuple, inp: FrameInputs, cfg: SlamConfig
     return FrameResult(
         maps=tuple(new_maps), keypoints=tuple(kps), pose=pose, trel=trel,
         failed=failed, total_matches=total, match_counts=counts, covariance=cov,
-        roll_offset=offset, is_keyframe=do_update, statuses=statuses, weights=wts,
-        packed=packed, submap_cache=tuple(new_cache), cache_stale=cache_stale)
+        roll_offset=offset, is_keyframe=do_update, overlap=overlap, warp=warp,
+        statuses=statuses, weights=wts, packed=packed, submap_cache=tuple(new_cache),
+        cache_stale=cache_stale)
+
+
+def _ego_registration(kps, prev_keypoints, trel_prior, cfg: SlamConfig, gated: bool):
+    """Scan-to-scan ICP of this sweep's edges and planes against the
+    previous sweep's (JAX pipeline.py:277-306): the refined ego-motion, or
+    the prior where it fails (an empty previous set fails it). The index is
+    the previous keypoints in extraction order, searched by the exact scan
+    (no prune radius): at most 4096 slots, and the per-ring filter's `near`
+    gate, like the RANSAC one, reads only the selected neighbours."""
+    ego_types = tuple(t for t in (Keypoint.EDGE, Keypoint.PLANE) if cfg.use_keypoints(t))
+    index = [None, None, None]
+    for t in ego_types:
+        pk = prev_keypoints[int(t)]
+        index[int(t)] = voxel_map.SubmapView(xyz=pk.xyz, ring=pk.ring, valid=pk.valid)
+    ego = icp.icp_register(
+        icp.ICPInputs(kp_xyz=tuple(k.xyz for k in kps), kp_valid=tuple(k.valid for k in kps),
+                      index=tuple(index)),
+        types=ego_types, pose0=trel_prior, params=cfg.ego_matching,
+        solver_cfg=cfg.solver, icp_iters=cfg.ego_motion_icp_max_iter,
+        lm_max_iter=cfg.ego_motion_lm_max_iter,
+        min_matches=cfg.min_nb_matched_keypoints, gated=gated)
+    return torch.where(ego.failed, trel_prior, ego.pose)
+
+
+def _time_range(kps, types, device):
+    """(time0, time1): the sweep's point-time range over the valid
+    keypoints of every used type, on the device."""
+    tmin = torch.full((), 3e38, dtype=torch.float32, device=device)
+    tmax = torch.full((), -3e38, dtype=torch.float32, device=device)
+    for t in types:
+        kp = kps[int(t)]
+        tmin = torch.minimum(tmin, torch.where(kp.valid, kp.time, 3e38).amin())
+        tmax = torch.maximum(tmax, torch.where(kp.valid, kp.time, -3e38).amax())
+    return tmin, tmax
+
+
+def _overlap(ri, pose, indices, cfg: SlamConfig, map_cfgs, warp, prepared):
+    """LCP overlap of a strided sample of the registered sweep against the
+    localization submaps (JAX pipeline.py:712-734), reusing their k-NN
+    indices."""
+    flat = ri.xyz.reshape(-1, 3)
+    n = flat.shape[0]
+    take = min(cfg.confidence.overlap_max_samples,
+               max(int(n * cfg.confidence.overlap_sampling_ratio), 1))
+    stride = max(n // take, 1)
+    sample = flat[::stride][:take]
+    svalid = ri.valid.reshape(-1)[::stride][:take].contiguous()
+    if warp is not None:
+        sample = undistortion.warp_points(sample, ri.time.reshape(-1)[::stride][:take], warp)
+    world = se3.japply_pose(pose, sample)
+    types = cfg.used_types
+    return confidence.lcp_overlap(world, svalid, [indices[int(t)] for t in types],
+                                  [map_cfgs[int(t)].leaf_size for t in types],
+                                  prepared=[prepared[int(t)] for t in types])
 
 
 def _select(cond, a, b):
@@ -369,11 +449,11 @@ def process_frame_stream(ri, state: StreamState, stamp, az_res, cfg: SlamConfig,
     `az_res` are () float32 device tensors."""
     ri = ensure_range_image(ri)
     ext = extractor.extract_keypoints(ri, az_res, cfg.extractor)
-    return _stream_step((ext.edges, ext.planes, ext.blobs), state, stamp, az_res, cfg,
+    return _stream_step((ext.edges, ext.planes, ext.blobs), ri, state, stamp, az_res, cfg,
                         map_cfgs, first_frame)
 
 
-def _stream_step(kps, state: StreamState, stamp, az_res, cfg: SlamConfig, map_cfgs,
+def _stream_step(kps, ri, state: StreamState, stamp, az_res, cfg: SlamConfig, map_cfgs,
                  first_frame: bool):
     dev = state.pose.device
     # in-graph constant-velocity extrapolation (Slam.cxx:821-836)
@@ -384,12 +464,13 @@ def _stream_step(kps, state: StreamState, stamp, az_res, cfg: SlamConfig, map_cf
     trel = torch.where(state.n_frames >= 2, trel, 0.0)
 
     inp = FrameInputs(
-        trel_prior=trel, prev_pose=state.pose, stamp=stamp, az_resolution=az_res,
+        trel_prior=trel, prev_pose=state.pose, t_prev=state.t_cur, stamp=stamp,
+        az_resolution=az_res,
         kf_last_pose=state.kf_pose, kf_counter=state.kf_counter,
         map_update=state.map_update, submap_cache=state.submap_cache,
         cache_stale=state.cache_stale)
-    res = process_keypoints(kps, state.maps, inp, cfg, map_cfgs, first_frame,
-                            sync_free=True)
+    res = process_keypoints(kps, ri, state.maps, state.prev_keypoints, inp, cfg, map_cfgs,
+                            first_frame, sync_free=True)
 
     res_m = voxel_map.effective_resolution(map_cfgs[int(cfg.used_types[0])])
     shift = torch.cat([res.roll_offset.to(torch.float32) * res_m,

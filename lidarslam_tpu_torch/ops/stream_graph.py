@@ -4,7 +4,7 @@ donate_argnums=...)`.
 
 The streaming step (`pipeline.process_frame_stream` at `first_frame=False`)
 reads nothing on the host, so one steady-state step can be captured as a
-`torch.cuda.CUDAGraph` and replayed once per sweep: the ~17k small kernels
+`torch.cuda.CUDAGraph` and replayed once per sweep: the ~18-38k small kernels
 of a frame then launch as one graph instead of one Python call each.
 
 - Static buffers: the `StreamState` tensors, one input record of bytes per

@@ -74,7 +74,7 @@ def half_extent(cfg: MapConfig) -> float:
     return cfg.grid_size / 2.0 * effective_resolution(cfg)
 
 
-def _device_f32(x, device):
+def device_f32(x, device):
     """A float32 tensor of `x` on `device`: a tensor is converted in place
     on its device, a host number filled in on the device (no host->device
     copy, so it is safe inside a captured CUDA graph)."""
@@ -167,7 +167,7 @@ def add_points(vmap_: VoxelMap, new_xyz, new_intensity, new_time, new_valid,
     y = torch.cat([vmap_.xyz[:, 1], by])
     z = torch.cat([vmap_.xyz[:, 2], bz])
     inten = torch.cat([vmap_.intensity, bint])
-    tim = torch.cat([vmap_.time, _device_f32(new_time, dev).expand(K)])
+    tim = torch.cat([vmap_.time, device_f32(new_time, dev).expand(K)])
     cnt = torch.cat([vmap_.count, torch.zeros((K,), dtype=torch.int32, device=dev)])
     fix = torch.cat([vmap_.fixed, torch.full((K,), bool(fixed), device=dev)]).to(torch.int32)
     is_new = (torch.arange(N, device=dev) >= M).to(torch.int32)
@@ -207,7 +207,7 @@ def add_points(vmap_: VoxelMap, new_xyz, new_intensity, new_time, new_valid,
     has_fixed_old = ((sfix == 1) & (snew == 0)) | (l_old & (nxt(sfix, 0) == 1))
     touched = winner & any_new & ~has_fixed_old
 
-    cur_t = _device_f32(current_time, dev)
+    cur_t = device_f32(current_time, dev)
     out_time = torch.where(touched, cur_t, stim)
     out_fix = torch.where(touched, int(fixed), sfix)
     out_cnt = torch.where(touched, old_cnt + 1, scnt)

@@ -20,9 +20,13 @@ Coordinate frames:
   MAP-frame float32. The origin is shared by all keypoint maps and advances
   by whole rolling-grid voxels.
 
+The confidence surface (LCP overlap from the device, motion-limit checks
+on the host's float64 log) fills `overlap` and `comply_motion_limits` in
+every summary dict, on both paths.
+
 Multi-LiDAR (and its streaming step), pose-graph optimization, keypoint
-logs, motion-limit checks, sensor constraints, checkpoints and the debug
-surface are not ported yet (ROADMAP.md).
+logs, sensor constraints, checkpoints and the debug surface are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,11 +39,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from lidarslam_tpu_torch import confidence
 from lidarslam_tpu_torch.config import (KEYPOINT_NAMES, EgoMotionMode, Keypoint,
                                        MappingMode, SlamConfig)
 from lidarslam_tpu_torch.core import se3
 from lidarslam_tpu_torch.ops import pipeline, stream_graph, voxel_map
-from lidarslam_tpu_torch.ops.frame import (KeypointsView, build_range_image,
+from lidarslam_tpu_torch.ops.frame import (Keypoints, KeypointsView, build_range_image,
                                            ensure_range_image,
                                            estimate_azimuthal_resolution,
                                            flatten_packed, stack_range_images,
@@ -105,6 +110,8 @@ class Slam:
         self.kf_last_pose = np.eye(4)
         self.kf_counter = 0
         self.covariance = np.zeros((6, 6))
+        self.overlap = -1.0
+        self.comply_motion_limits = True
         self.total_matched_keypoints = 0
         self.map_overflow = np.zeros(3, np.int64)
         self.latency = 0.0
@@ -114,6 +121,7 @@ class Slam:
         self.last_seq = None
         self.failure = False
         self.current_keypoints = {}     # per type, KeypointsView after a flush
+        self.current_warp = None        # the last add_frame's WarpParams
         self._device_keypoints = None   # previous sweep's Keypoints (device)
         self._maps_populated = False    # host-side: any map has points
         self._prefetched = None         # (stamp, wire) of add_frame's next_frame
@@ -121,6 +129,9 @@ class Slam:
         self._stream_pending = []       # enqueued results not yet flushed
         self._window_buf = []           # host sweeps of the filling window
         self._stream_enqueued = 0
+        self.motion_checker = confidence.MotionLimitChecker(
+            cfg.confidence.time_window_duration, cfg.confidence.velocity_limits,
+            cfg.confidence.acceleration_limits)
         self._invalidate_submaps()
         if reset_log:
             self.n_frames = 0
@@ -161,8 +172,11 @@ class Slam:
         inp = self._make_inputs(stamp)
         first = not self._maps_populated
         maps_in = tuple(self.maps.get(Keypoint(i)) for i in range(3))
-        res = pipeline.process_frame(ri, maps_in, inp, self.cfg, self._map_cfgs_tuple,
-                                     first)
+        prev_kp = self._device_keypoints if self._device_keypoints is not None \
+            else tuple(Keypoints.empty(self.cfg.extractor.kp_capacity(i), self.device)
+                       for i in range(3))
+        res = pipeline.process_frame(ri, maps_in, prev_kp, inp, self.cfg,
+                                     self._map_cfgs_tuple, first)
         if next_frame is not None and next_frame.get("xyz") is not None \
                 and len(next_frame["xyz"]) > 0:
             self._prefetched = (next_frame["stamp"], self._build_ri(next_frame))
@@ -242,9 +256,6 @@ class Slam:
     def _check_stream_supported(self):
         """Raise where the config asks streaming for what is not ported."""
         cfg = self.cfg
-        if cfg.confidence.time_window_duration > 0:
-            raise NotImplementedError("motion-limit checks (comply_motion_limits) "
-                                      "are not ported yet (ROADMAP.md, Queue 1)")
         if cfg.wheel_odom_weight > 0 or cfg.imu_weight > 0:
             raise NotImplementedError("sensor constraints in the stream are not "
                                       "ported yet (ROADMAP.md, Queue 1)")
@@ -372,6 +383,7 @@ class Slam:
                 self.covariance = u["cov"]
                 self.failure = u["failed"]
                 self.total_matched_keypoints = u["total"]
+                self.overlap = u["overlap"]
                 if u["is_kf"]:
                     self.kf_counter += 1
                     self.kf_last_pose = self.Tworld.copy()
@@ -384,12 +396,14 @@ class Slam:
                     Keypoint(i): KeypointsView(entry["kps_flat"][i],
                                                row=w if windowed else None)
                     for i in range(3)}
+                self._check_motion_limits(stamp)
                 self._log_state(stamp)
                 self.n_frames += 1
                 outs.append({"pose": self.Tworld.copy(),
                              "covariance": self.covariance.copy(),
-                             "n_matches": int(u["total"]), "failure": u["failed"],
-                             "kp_counts": u["kp_counts"]})
+                             "n_matches": int(u["total"]), "overlap": u["overlap"],
+                             "failure": u["failed"], "kp_counts": u["kp_counts"],
+                             "comply_motion_limits": self.comply_motion_limits})
         self._stream_pending = []
         # the host is the source of truth again; the next segment re-seeds
         self._stream_state = None
@@ -430,9 +444,11 @@ class Slam:
         prev_rel[:3, 3] -= self.map_origin
         kf_rel = self.kf_last_pose.copy()
         kf_rel[:3, 3] -= self.map_origin
+        t_prev = self.log_trajectory[-1]["time"] if self.log_trajectory else stamp
         return pipeline.FrameInputs(
             trel_prior=self._pose_tensor(trel_prior),
             prev_pose=self._pose_tensor(prev_rel),
+            t_prev=t_prev,
             stamp=stamp,
             az_resolution=float(np.float32(self.azimuthal_resolution)),
             kf_last_pose=self._pose_tensor(kf_rel),
@@ -449,6 +465,7 @@ class Slam:
         self._submap_cache = res.submap_cache
         self._cache_stale = res.cache_stale
         self._device_keypoints = res.keypoints
+        self.current_warp = res.warp
         if cfg.verbosity >= 1:
             for t in cfg.used_types:
                 cap = cfg.extractor.kp_capacity(t)
@@ -457,6 +474,7 @@ class Slam:
                               "extractor keypoint budget for this sensor")
         self.failure = u["failed"]
         self.total_matched_keypoints = u["total"]
+        self.overlap = u["overlap"]
         self._update_map_overflow(u["map_overflow"])
         if self.failure:
             self._log("not enough keypoints matched; localization skipped")
@@ -474,6 +492,7 @@ class Slam:
             self._map_cfgs_tuple[int(cfg.used_types[0])])
         self.map_origin = self.map_origin + shift
 
+        self._check_motion_limits(stamp)
         self._log_state(stamp)
         self.n_frames += 1
         self.latency = _time.perf_counter() - t0
@@ -481,6 +500,8 @@ class Slam:
             "pose": self.Tworld.copy(),
             "covariance": self.covariance.copy(),
             "n_matches": int(self.total_matched_keypoints),
+            "overlap": self.overlap,
+            "comply_motion_limits": self.comply_motion_limits,
             "failure": self.failure,
             "kp_counts": u["kp_counts"],
             "duration": self.latency,
@@ -497,6 +518,14 @@ class Slam:
                               f"capacity {self.map_cfgs[k].capacity}; raise "
                               "map capacity for this environment")
         self.map_overflow = overflow
+
+    def _check_motion_limits(self, stamp):
+        """Motion-limit confidence of the new pose against the log before it
+        is appended (Slam.cxx:1391-1484), when a time window is set."""
+        if self.cfg.confidence.time_window_duration > 0:
+            status = self.motion_checker.check(
+                [(e["time"], e["pose"]) for e in self.log_trajectory], self.Tworld, stamp)
+            self.comply_motion_limits = status.comply
 
     def _log_state(self, stamp):
         """Trajectory/covariance logging with timeout pruning

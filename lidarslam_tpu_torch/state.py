@@ -13,7 +13,9 @@ State dict keys:
 - "trajectory_times" (n,), "trajectory_poses" (n, 4, 4);
 - "azimuthal_resolution", "last_stamp";
 - optional "prev_keypoints": per type {"xyz", "intensity", "time", "ring",
-  "valid", "count"};
+  "valid", "count"} — the previous sweep's keypoints, which ego-motion
+  registration matches against (the previous stamp, which undistortion
+  reads, is the last of "trajectory_times");
 - optional "submap_selected": {type: (M,) bool} and "cache_stale": the
   lazily rebuilt submap selection, so the next sweep matches against the
   same submap as the exporting engine would.
@@ -21,7 +23,9 @@ State dict keys:
 `stream_state_from_numpy` does the same for the streaming mode's device
 state: a `StreamState` of the JAX package pulled to numpy (for example with
 `jax.tree.map(np.asarray, state)`) becomes the port's, so both engines can
-step the same next sweep from the same mid-sequence state.
+step the same next sweep from the same mid-sequence state; its
+`prev_keypoints` and `t_prev` carry ego-motion registration and
+undistortion across.
 """
 
 from __future__ import annotations

@@ -9,13 +9,14 @@ lies in, on one CUDA card:
    (one window of CUDA-graph replays): device busy ms/frame and the device
    ms/frame of every kernel whose name holds `knn`.
 2. pruning: the 30 sweeps through `Slam.add_frame` and through
-   `add_frame_async` + `flush`, four times each: the kernel pruned at the
-   matcher's neighbour gate for both keypoint types (the path as it is),
-   then the exact scan (no prune radius) for edges only, for planes only
-   and for both. Each run prints its largest pose divergence from the JAX
-   package's trajectory (`chip_smoke.REF_PATH` / `STREAM_REF_PATH`) and the
-   frames whose n_matches differ from it, so a divergence can be traced to
-   the type whose pruning causes it.
+   `add_frame_async` + `flush`, three times each, with the prune radius set
+   per keypoint type whatever the checkout's own policy: planes pruned at
+   the matcher's neighbour gate and edges scanned exactly (the path since
+   edges stopped pruning), both pruned (the path before), and both exact.
+   Each run prints its largest pose divergence from the JAX package's
+   trajectory (`chip_smoke.REF_PATH` / `STREAM_REF_PATH`) and the frames
+   whose n_matches differ from it, so a divergence can be traced to the
+   type whose pruning causes it.
 
 It uses only `chip_smoke.py` and `lidarslam_tpu_torch/` of its own
 checkout, so a copy placed in another checkout (an older commit unpacked
@@ -32,8 +33,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-VARIANTS = (("pruned", ()), ("exact edges", ("edge",)), ("exact planes", ("plane",)),
-            ("exact both", ("edge", "plane")))
+# the types the kernel prunes at the matcher's neighbour gate in each run
+VARIANTS = (("planes pruned", ("plane",)), ("both pruned", ("edge", "plane")),
+            ("both exact", ()))
 
 
 def _profile_stream(frames, cfg):
@@ -120,12 +122,13 @@ def main() -> int:
 
     refs = {False: np.load(chip_smoke.REF_PATH), True: np.load(chip_smoke.STREAM_REF_PATH)}
     brute_knn = matcher.brute_knn
-    for name, exact in VARIANTS:
-        exact_k = {k_of[t] for t in exact}
+    radius = float(cfg.loc_matching.max_neighbors_distance)
+    for name, pruned in VARIANTS:
+        pruned_k = {k_of[t] for t in pruned}
 
         def knn(view, queries, k, prune_radius=None, **kw):
             return brute_knn(view, queries, k,
-                             prune_radius=None if k in exact_k else prune_radius, **kw)
+                             prune_radius=radius if k in pruned_k else None, **kw)
 
         matcher.brute_knn = knn
         try:

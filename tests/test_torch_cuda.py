@@ -287,3 +287,100 @@ def test_cuda_stream_replays_graph_and_matches_cpu(cuda, split):
         assert not a["failure"] and not b["failure"]
         assert np.linalg.norm(a["pose"][:3, 3] - b["pose"][:3, 3]) < 0.01
         assert abs(a["n_matches"] - b["n_matches"]) <= 0.01 * max(b["n_matches"], 1)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_overlap_and_ego_shapes(cuda):
+    """The new call shapes of the path: the overlap's 1-NN (Q=8192, k=1,
+    prune radius 2 m) against a leaf-sorted map, and the ego-motion k-NN
+    (Q=2048, k=8, unpruned) against a 2048-slot index of keypoints in
+    extraction order (not leaf order), slot indices included."""
+    xyz, valid, _, _ = _scene()
+    queries, q_valid = _queries_off(xyz, valid, 8192, seed=11)
+    _check_kernel(cuda, xyz, valid, queries, q_valid, 1, radius=2.0)
+    rng = np.random.default_rng(12)
+    pick = rng.permutation(np.flatnonzero(valid))[:2048]
+    kp_xyz = (xyz[pick] + rng.normal(0, 0.02, (2048, 3))).astype(np.float32)
+    kp_valid = rng.uniform(size=2048) < 0.9
+    queries, q_valid = _queries_off(kp_xyz, kp_valid, 2048, seed=13)
+    x, v = torch.from_numpy(kp_xyz).to(cuda), torch.from_numpy(kp_valid).to(cuda)
+    q, qv = torch.from_numpy(queries).to(cuda), torch.from_numpy(q_valid).to(cuda)
+    got = cuda_knn.kernel_knn(cuda_knn.prepare_map(x, v), q, 8, None, qv)
+    want = cuda_knn.plain_knn(x, v, q, 8, q_valid=qv)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reuse", [False, True])
+def test_cuda_edge_matches_equal_plain(cuda, reuse, monkeypatch):
+    """Localization edges on a slice-like map: the kernel path (unpruned)
+    gives exactly the statuses, weights and A6 of the plain scan on the same
+    card (the matcher's brute_knn swapped for plain_knn, so only the k-NN
+    differs between the two runs)."""
+    from lidarslam_tpu_torch.config import Keypoint
+    from lidarslam_tpu_torch.core import se3
+    from lidarslam_tpu_torch.ops import matcher
+
+    xyz, valid, _, _ = _scene()
+    queries, q_valid = _queries_off(xyz, valid, 2048, seed=14)
+    params = MatchingConfig()
+    view = tvm.SubmapView(xyz=torch.from_numpy(xyz).to(cuda), ring=None,
+                          valid=torch.from_numpy(valid).to(cuda))
+    q, qv = torch.from_numpy(queries).to(cuda), torch.from_numpy(q_valid).to(cuda)
+    pose = torch.tensor([0.02, -0.01, 0.0, 0.002, 0.0, -0.003], device=cuda)
+    prepared = tvm.prepare_knn_index(view)
+
+    def run():
+        knn = None
+        if reuse:
+            _, nbr, rings, found = matcher.knn_query(
+                view, se3.japply_pose(pose + 0.01, q), params.edge_nb_neighbors,
+                matcher.knn_radius(Keypoint.EDGE, params), qv, prepared)
+            knn = (nbr, rings, found)
+        return matcher.match_edges(q, qv, view, pose, params, prepared=prepared, knn=knn)
+
+    radii, launch = [], cuda_knn.launch
+
+    def recording(index, queries, q_valid, order, k, r2):
+        radii.append(r2)
+        return launch(index, queries, q_valid, order, k, r2)
+
+    monkeypatch.setattr(cuda_knn, "launch", recording)
+    kernel = run()
+    assert radii == [float("inf")]                                  # unpruned
+    monkeypatch.setattr(matcher, "brute_knn", lambda v, qq, k, prune_radius=None,
+                        q_valid=None, prepared=None: cuda_knn.plain_knn(
+                            v.xyz, v.valid, qq, k, q_valid=q_valid))
+    plain = run()
+    assert int(plain.n_matches) > 100
+    for name in ("status", "A6", "P", "weight"):
+        assert torch.equal(getattr(kernel, name), getattr(plain, name)), name
+
+
+@pytest.mark.cuda
+def test_cuda_full_pipeline_matches_cpu(cuda):
+    """REFINED undistortion, ego registration, overlap and motion limits on
+    the card against the CPU, through add_frame and through the stream."""
+    from lidarslam_tpu_torch.config import (ConfidenceConfig, EgoMotionMode,
+                                            UndistortionMode)
+
+    cfg = _small_stream_cfg().replace(
+        undistortion=UndistortionMode.REFINED,
+        ego_motion_mode=EgoMotionMode.MOTION_EXTRAPOLATION_AND_REGISTRATION,
+        confidence=ConfidenceConfig(overlap_sampling_ratio=0.25, time_window_duration=0.5,
+                                    velocity_limits=(5.0, 45.0),
+                                    acceleration_limits=(10.0, 90.0)))
+    frames = synthetic.generate_sequence(
+        n_frames=8, motion_distortion=True, sensor=synthetic.SensorModel(range_noise=0.005))
+    runs = {}
+    for name, dev in (("gpu", cuda), ("cpu", "cpu")):
+        slam = Slam(cfg, device=dev)
+        runs[name + "_sync"] = [slam.add_frame(f) for f in frames]
+        runs[name + "_stream"] = _stream(Slam(cfg, device=dev), frames, None)
+    for path in ("_sync", "_stream"):
+        for a, b in zip(runs["gpu" + path], runs["cpu" + path]):
+            assert not a["failure"] and not b["failure"]
+            assert np.linalg.norm(a["pose"][:3, 3] - b["pose"][:3, 3]) < 0.01
+            assert abs(a["n_matches"] - b["n_matches"]) <= 0.01 * max(b["n_matches"], 1)
+            assert abs(a["overlap"] - b["overlap"]) < 1e-3
+            assert a["comply_motion_limits"] == b["comply_motion_limits"]

@@ -238,6 +238,25 @@ def test_bound_pairs_matches_numpy(scene):
     assert got == want > 0
 
 
+def test_knn_bound_counts_what_the_function_moves(scene):
+    """chip_smoke's bound without a radius: every live query against every
+    valid slot; its bytes are the x, y, z of the valid slots and live
+    queries, a validity bit per slot and per query and 20 B per output
+    entry, not the index's +inf padding slots or its sub-block boxes."""
+    xyz, valid, queries, q_valid = scene
+    valid = valid & (np.arange(len(valid)) % 7 == 0)     # a sparse map
+    index = cuda_knn.prepare_map(torch.from_numpy(xyz), torch.from_numpy(valid))
+    k = 5
+    b = _chip_smoke().knn_bound(index, torch.from_numpy(queries), torch.from_numpy(q_valid),
+                                k, None)
+    n_slots, Q = index.pts.shape[0], len(queries)
+    assert b["pairs"] == int(valid.sum()) * int(q_valid.sum()) > 0
+    assert b["bytes"] == (12 * (int(valid.sum()) + int(q_valid.sum()))
+                          + -(-(n_slots + Q) // 8) + 20 * Q * k)
+    assert b["us"] == max(b["ops_us"], b["bytes_us"])
+    assert b["by"] == ("operations" if b["ops_us"] >= b["bytes_us"] else "bytes")
+
+
 @pytest.mark.parametrize("radius", [1.0, RADIUS, None])
 def test_plain_work_list_keeps_every_pair_within_radius(scene, radius):
     """No (tile, sub-block) holding a (live query, valid slot) pair within

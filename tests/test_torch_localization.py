@@ -60,10 +60,11 @@ def test_matchers_match_jax(kind, reuse):
         from lidarslam_tpu_torch.core import se3 as tse3
         _, jn, jr, jf = jmatcher.knn_query(_jview(mp), jse3.japply_pose(
             jnp.asarray(pose0), jnp.asarray(kp)), k, jp, None, jnp.asarray(valid))
-        _, tn, tf = tmatcher.knn_query(_tview(mp), tse3.japply_pose(
-            torch.from_numpy(pose0), torch.from_numpy(kp)), k, tp,
-            torch.from_numpy(valid))
-        jknn, tknn = (jn, jr, jf), (tn, tf)
+        kind = TKeypoint.EDGE if kind == "edges" else TKeypoint.PLANE
+        _, tn, tr, tf = tmatcher.knn_query(_tview(mp), tse3.japply_pose(
+            torch.from_numpy(pose0), torch.from_numpy(kp)), k,
+            tmatcher.knn_radius(kind, tp), torch.from_numpy(valid))
+        jknn, tknn = (jn, jr, jf), (tn, tr, tf)
     mj = jfn(jnp.asarray(kp), jnp.asarray(valid), _jview(mp), jnp.asarray(pose), jp,
              None, knn=jknn)
     mt = tfn(torch.from_numpy(kp), torch.from_numpy(valid), _tview(mp),

@@ -21,14 +21,15 @@ from lidarslam_tpu_torch import Slam
 from lidarslam_tpu_torch.ops.frame import FlatRangeImage, KeypointsView, PackedRangeImage
 from lidarslam_tpu_torch.ops.pipeline import StreamState, process_stream_window
 from lidarslam_tpu_torch.ops.stream_graph import StreamGraph, WireRecord
-from lidarslam_tpu_torch.ops.undistortion import jinterpolate_pose
+from lidarslam_tpu_torch.ops.undistortion import compute_warp, jinterpolate_pose, warp_points
+from lidarslam_tpu_torch.confidence import MotionLimitChecker, lcp_overlap
 from lidarslam_tpu_torch.state import stream_state_from_numpy
 assert callable(Slam.add_frame_async) and callable(Slam.flush)
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'lidarslam_tpu.'))
              or m == 'lidarslam_tpu')
 print(len(names), bad)
-assert len(names) >= 16, names
+assert len(names) >= 17, names
 assert not bad, bad
 """
 

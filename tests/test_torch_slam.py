@@ -183,10 +183,11 @@ def test_map_overflow_tracked_after_insert(runs, capsys):
 
 
 @pytest.mark.parametrize("change", [
-    dict(ego_motion_mode=tcfg.EgoMotionMode.REGISTRATION),
-    dict(undistortion=tcfg.UndistortionMode.ONCE),
     dict(use_blobs=True),
-    dict(confidence=tcfg.ConfidenceConfig(overlap_sampling_ratio=0.5)),
+    dict(plane_map=tcfg.MapConfig(leaf_size=0.60, decaying_threshold=2.0)),
+    dict(edge_map=tcfg.MapConfig(leaf_size=0.30, sampling=tcfg.SamplingMode.CENTROID)),
+    dict(plane_map=tcfg.MapConfig(leaf_size=0.60,
+                                  sampling=tcfg.SamplingMode.CENTER_POINT)),
 ])
 def test_unported_branches_raise(change):
     with pytest.raises(NotImplementedError, match="not ported"):

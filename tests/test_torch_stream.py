@@ -22,7 +22,6 @@ from lidarslam_tpu.ops import frame as jframe
 from lidarslam_tpu.ops import pipeline as jpipe
 from lidarslam_tpu.ops import undistortion as jund
 from lidarslam_tpu_torch import Slam as TSlam
-from lidarslam_tpu_torch import config as tcfg
 from lidarslam_tpu_torch import state as tstate
 from lidarslam_tpu_torch.config import Keypoint as TKeypoint
 from lidarslam_tpu_torch.config import MatchingConfig as TMatching
@@ -359,6 +358,9 @@ def test_gated_icp_equals_host_exit(case, monkeypatch):
     gated = _icp(seed, pose0, reuse, min_matches, gated=True)
     assert len(calls) == rounds + 3      # the gated form runs every round
     for a, b in zip(host, gated):
+        if a is None:                    # no warp without undistortion
+            assert b is None
+            continue
         for x, y in zip(a if isinstance(a, tuple) else (a,),
                         b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x, y)
@@ -441,7 +443,7 @@ def test_add_frame_next_frame_prefetch_is_identical(runs):
 
 
 @pytest.mark.parametrize("change", [
-    dict(confidence=tcfg.ConfidenceConfig(time_window_duration=1.0)),
+    dict(wheel_odom_weight=1.0),
     dict(imu_weight=1.0),
     dict(compress_upload=False),
 ])
