@@ -59,7 +59,8 @@ class ICPResult(NamedTuple):
 
 
 _MATCH_FNS = {Keypoint.EDGE: matcher.match_edges,
-              Keypoint.PLANE: matcher.match_planes}
+              Keypoint.PLANE: matcher.match_planes,
+              Keypoint.BLOB: matcher.match_blobs}
 
 
 def saturation_schedule(it: int, icp_iters: int, params: MatchingConfig):
@@ -83,11 +84,8 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
     needs `prev_pose`, the stamps `t_prev`, `t_cur` and the sweep's point
     `time_range` (time0, time1), all () float32 tensors. `prune_radii`: per
     type, the radius beyond which the kernel may skip map sub-blocks (None:
-    the exact scan; `matcher.knn_radius`)."""
-    for t in types:
-        if t not in _MATCH_FNS:
-            raise NotImplementedError(f"{t.name} matching is not ported yet "
-                                      "(ROADMAP.md, Queue 1: blobs)")
+    the exact scan; `matcher.knn_radius`). `extras`: sensor residual blocks
+    (sensors/constraints.py) that every LM evaluation adds."""
     pose = pose0.to(torch.float32)
     dev = pose.device
     active = torch.ones((), dtype=torch.bool, device=dev)
@@ -114,7 +112,8 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
             prepared[int(t)] = voxel_map.prepare_knn_index(inputs.index[int(t)])
 
     k_of = {Keypoint.EDGE: params.edge_nb_neighbors,
-            Keypoint.PLANE: params.plane_nb_neighbors}
+            Keypoint.PLANE: params.plane_nb_neighbors,
+            Keypoint.BLOB: params.blob_nb_neighbors}
     reuse = params.reuse_knn and icp_iters > 1
     knn_cache = None
 

@@ -1,5 +1,5 @@
 """Batched keypoint -> map-model matching (PyTorch port of
-`lidarslam_tpu/ops/matcher.py`, edges and planes).
+`lidarslam_tpu/ops/matcher.py`).
 
 Per keypoint type one batched pipeline over the fixed keypoint capacity:
 k-NN, masked neighbourhood PCA, the validity gates and the Mahalanobis
@@ -11,17 +11,20 @@ residual parameters (KeypointsMatcher.cxx:33-480):
   excluded (GetPerRingLineNeighbors 349-405); line model A = I - n n^T
   (BuildLineMatch 106-187);
 - planes: planarity gate l1/l2 >= threshold, model A = n n^T
-  (BuildPlaneMatch 190-273).
+  (BuildPlaneMatch 190-273);
+- blobs: point-to-ellipsoid, A = sum_j rsqrt(max(l_j, blob_min_sigma^2))
+  v_j v_j^T, weight 1 (BuildBlobMatch 276-346).
 
 Each match yields (A, P, X, weight, status): the solver's residual is
-w * A @ (R X + t - P) with w = 1 - sqrt(mse)/max_model_error, and status is
-a MatchStatus rejection code. Blob matching is not ported yet.
+w * A @ (R X + t - P) with w = 1 - sqrt(mse)/max_model_error (1 for
+blobs), and status is a MatchStatus rejection code.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from lidarslam_tpu_torch.config import Keypoint, MatchingConfig, MatchStatus
@@ -101,9 +104,9 @@ def knn_radius(kind: Keypoint, params: MatchingConfig):
     enter the selection and change the match (and, under `reuse_knn`, be
     re-posed inside the gate in a later round). Unpruned, the kernel
     returns exactly what the exact scan — and the JAX package's CPU
-    reference — returns. Planes prune at the neighbour gate: their `near`
-    reads every found neighbour, so a beyond-gate neighbour fails it
-    whichever slot it is."""
+    reference — returns. Planes and blobs prune at the neighbour gate:
+    their `near` reads every found neighbour, so a beyond-gate neighbour
+    fails it whichever slot it is."""
     return None if kind == Keypoint.EDGE else float(params.max_neighbors_distance)
 
 
@@ -196,6 +199,46 @@ def match_edges(kp_xyz, kp_valid, index: SubmapView, pose, params: MatchingConfi
     status = _status_chain(kp_valid, enough, near,
                            [(finite, MatchStatus.INVALID_NUMERICAL),
                             (mse_ok, MatchStatus.MSE_TOO_LARGE)])
+    return _finish(A, mean, kp_xyz, weight, ok, status)
+
+
+def match_blobs(kp_xyz, kp_valid, index: SubmapView, pose, params: MatchingConfig,
+                prepared=None, knn=None, prune_radius=None):
+    """Point-to-ellipsoid matches (BuildBlobMatch semantics); `knn` and
+    `prune_radius` as in `match_planes` (blobs prune at the gate too: their
+    `near` reads every found neighbour)."""
+    k = params.blob_nb_neighbors
+    world = se3.japply_pose(pose, kp_xyz)
+    if knn is None:
+        d2, nbr, _, found = _knn(index, world, k, prune_radius, kp_valid, prepared)
+    else:
+        nbr, _, found = knn
+        d2 = _reuse_d2(world, nbr, found)
+
+    n_found = torch.sum(found, dim=1)
+    enough = kp_valid & (n_found >= k)
+    near = torch.where(found, d2, 0.0).amax(dim=1) <= params.max_neighbors_distance ** 2
+
+    mean, c6, _ = pca.masked_cov6(nbr, found)
+    lams, vecs = pca.eigh6(c6)
+    pca_ok = lams[0] > 1e-12
+    # the sigma floor (MatchingConfig.blob_min_sigma) bounds the weight of
+    # near-singular single-arc neighbourhoods
+    lam_floor = float(np.float32(params.blob_min_sigma ** 2))
+    s = [torch.rsqrt(torch.clamp(lam, min=lam_floor)) for lam in lams]
+
+    def entry(a, b):
+        return s[0] * vecs[0][a] * vecs[0][b] + s[1] * vecs[1][a] * vecs[1][b] \
+            + s[2] * vecs[2][a] * vecs[2][b]
+
+    A = _a6(entry(0, 0), entry(0, 1), entry(0, 2), entry(1, 1), entry(1, 2), entry(2, 2))
+    finite = torch.isfinite(A).all(dim=0)
+
+    ok = enough & near & pca_ok & finite
+    weight = torch.ones_like(d2[:, 0])
+    status = _status_chain(kp_valid, enough, near,
+                           [(pca_ok, MatchStatus.BAD_PCA_STRUCTURE),
+                            (finite, MatchStatus.INVALID_NUMERICAL)])
     return _finish(A, mean, kp_xyz, weight, ok, status)
 
 

@@ -24,10 +24,12 @@ for one sweep. Where the JAX package decides on device with `lax.cond` /
 Both forms compute the keyframe thresholds from the keyframe counter on the
 device, and the covariance by a Jacobi pseudo-inverse (solver.py).
 
-Blobs, map decay (`clear_old_points`), CENTROID / CENTER_POINT leaf
-sampling, sensor constraints, the multi-LiDAR entry points and the
-multi-chip branches are not ported yet; each raises if its configuration
-asks for it.
+Every single-LiDAR option runs on both forms: blobs with the blob map, the
+five leaf-sampling modes, map decay (`clear_old_points`, before the submap
+view, so a decaying type rebuilds its submap every frame and keeps no
+`SubmapCache`) and the sensor residual blocks (`FrameInputs.extras`, added
+to the localization LM). The multi-LiDAR entry points and the multi-chip
+branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ class FrameInputs(NamedTuple):
     az_resolution: object        # extractor azimuthal resolution [rad]
     kf_last_pose: torch.Tensor   # (6,) last keyframe pose, MAP frame
     kf_counter: object           # keyframes so far
+    extras: tuple = ()           # sensor residual blocks (sensors/constraints.py)
     map_update: object = True    # live map-update switch
     submap_cache: tuple = (None, None, None)  # per-type SubmapCache (or None)
     cache_stale: object = True   # map changed since the last rebuild
@@ -142,16 +145,6 @@ def init_submap_cache(cfg: SlamConfig, map_cfgs, device):
     return tuple(caches)
 
 
-def check_supported(cfg: SlamConfig):
-    """Raise for configurations whose branches are not ported yet."""
-    if cfg.use_blobs:
-        raise NotImplementedError("blob keypoints are not ported yet (ROADMAP.md, Queue 1)")
-    if any(cfg.map_config(t).decaying_threshold > 0 for t in cfg.used_types):
-        raise NotImplementedError("map decay (clear_old_points) is not ported yet")
-    for t in cfg.used_types:
-        voxel_map._check_sampling(cfg.map_config(t).sampling)
-
-
 def process_frame(ri, maps: tuple, prev_keypoints: tuple, inp: FrameInputs,
                   cfg: SlamConfig, map_cfgs: tuple, first_frame: bool) -> FrameResult:
     """Full per-sweep step from a range image (or one of its wires);
@@ -176,7 +169,6 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
     """Per-sweep step from already-extracted keypoints; `ri` (a RangeImage,
     or None) is sampled for the overlap. `sync_free`: the streaming form,
     with no host read (see module docstring)."""
-    check_supported(cfg)
     types = cfg.used_types
     dev = inp.prev_pose.device
 
@@ -206,9 +198,13 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
     else:
         index = [None, None, None]
         prepared = [None, None, None]
+        maps = list(maps)
         for t in types:
             ti = int(t)
-            m, kp, mc = maps[ti], kps[ti], map_cfgs[ti]
+            mc = map_cfgs[ti]
+            if mc.decaying_threshold > 0:
+                maps[ti] = voxel_map.clear_old_points(maps[ti], inp.stamp, mc)
+            m, kp = maps[ti], kps[ti]
             cache = inp.submap_cache[ti]
             view = None
             if cache is None or sync_free or inp.cache_stale:
@@ -227,6 +223,8 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
                 view = voxel_map.SubmapView(xyz=m.xyz, ring=None,
                                             valid=new_cache[ti].selected)
                 prepared[ti] = new_cache[ti].index
+            else:   # per-frame submap (decay): one index for the ICP and the overlap
+                prepared[ti] = voxel_map.prepare_knn_index(view)
             index[ti] = view
 
         undist_kwargs = {}
@@ -245,7 +243,7 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
             solver_cfg=cfg.solver, icp_iters=cfg.localization_icp_max_iter,
             lm_max_iter=cfg.localization_lm_max_iter,
             min_matches=cfg.min_nb_matched_keypoints, prepared=tuple(prepared),
-            gated=sync_free,
+            extras=inp.extras, gated=sync_free,
             prune_radii=tuple(matcher.knn_radius(t, cfg.loc_matching) for t in Keypoint),
             **undist_kwargs)
 
@@ -440,21 +438,22 @@ class StreamState(NamedTuple):
 
 
 def process_frame_stream(ri, state: StreamState, stamp, az_res, cfg: SlamConfig,
-                         map_cfgs: tuple, first_frame: bool):
+                         map_cfgs: tuple, first_frame: bool, extras=()):
     """One chained streaming step: (state', packed (67,), kps_flat — one
     (7K+1,) log buffer per type, frame.flatten_keypoints).
 
     packed = pack_scalars (64) + origin_vox after this frame (3); its poses
     are relative to the origin before this frame's roll. `stamp` and
-    `az_res` are () float32 device tensors."""
+    `az_res` are () float32 device tensors; `extras` the sweep's sensor
+    residual blocks, as device tensors."""
     ri = ensure_range_image(ri)
     ext = extractor.extract_keypoints(ri, az_res, cfg.extractor)
     return _stream_step((ext.edges, ext.planes, ext.blobs), ri, state, stamp, az_res, cfg,
-                        map_cfgs, first_frame)
+                        map_cfgs, first_frame, extras)
 
 
 def _stream_step(kps, ri, state: StreamState, stamp, az_res, cfg: SlamConfig, map_cfgs,
-                 first_frame: bool):
+                 first_frame: bool, extras=()):
     dev = state.pose.device
     # in-graph constant-velocity extrapolation (Slam.cxx:821-836)
     Rw, tw = undistortion.jinterpolate_pose(state.prev_pose, state.pose, stamp,
@@ -466,7 +465,7 @@ def _stream_step(kps, ri, state: StreamState, stamp, az_res, cfg: SlamConfig, ma
     inp = FrameInputs(
         trel_prior=trel, prev_pose=state.pose, t_prev=state.t_cur, stamp=stamp,
         az_resolution=az_res,
-        kf_last_pose=state.kf_pose, kf_counter=state.kf_counter,
+        kf_last_pose=state.kf_pose, kf_counter=state.kf_counter, extras=extras,
         map_update=state.map_update, submap_cache=state.submap_cache,
         cache_stale=state.cache_stale)
     res = process_keypoints(kps, ri, state.maps, state.prev_keypoints, inp, cfg, map_cfgs,

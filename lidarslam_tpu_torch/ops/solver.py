@@ -11,6 +11,9 @@
   (`SolverConfig.lm_unroll`), equivalent to its `while_loop` — so it costs
   no host sync per LM step. `n_success` starts at 1 (the initial
   evaluation), for the ICP early exit on `n_success == 1`;
+- sensor residual blocks (`extras`: wheel odometry, IMU gravity) add plain
+  scaled least squares to every evaluation; an invalid block's weight is 0,
+  so it adds exactly nothing;
 - pose covariance = pseudo-inverse of the robust Gauss-Newton Hessian,
   by a fixed-sweep Jacobi eigendecomposition (no host sync).
 
@@ -28,6 +31,7 @@ import torch
 from lidarslam_tpu_torch.config import SolverConfig
 from lidarslam_tpu_torch.core import se3
 from lidarslam_tpu_torch.ops.matcher import Matches
+from lidarslam_tpu_torch.sensors.constraints import GravityResidual, OdomResidual
 
 
 def tukey_rho(s, a):
@@ -76,8 +80,43 @@ def _block(m: Matches) -> _Block:
     return _Block(A=m.A, X=m.X, P=m.P, w=torch.where(m.valid, m.weight, 0.0))
 
 
-def _evaluate(b: _Block, pose, saturation):
-    """Robust cost, normal equations H (6,6) and gradient g (6,) at `pose`."""
+def _extra_terms(extras, R, t, dRs):
+    """Cost, H and g of the sensor residual blocks at the pose (R, t) with
+    rotation derivatives dRs: plain scaled least squares, no robust loss,
+    as the reference's ScaledLoss(NULL, weight) (SensorConstraints.cxx)."""
+    dev = t.device
+    H = torch.zeros((6, 6), dtype=torch.float32, device=dev)
+    g = torch.zeros((6,), dtype=torch.float32, device=dev)
+    cost = torch.zeros((), dtype=torch.float32, device=dev)
+    zeros3 = torch.zeros(3, dtype=torch.float32, device=dev)
+    for ex in extras:
+        w = torch.where(ex.valid, ex.weight, 0.0)
+        if isinstance(ex, OdomResidual):
+            m = t - ex.prev_pos
+            sq = torch.sum(m * m)
+            norm = torch.sqrt(torch.clamp(sq, min=1e-12))
+            e = torch.where(sq < 1e-6, 0.0, norm) - ex.distance
+            J = torch.cat([torch.where(sq < 1e-6, zeros3, m / norm), zeros3])
+            H = H + w * torch.outer(J, J)
+            g = g + w * J * e
+            cost = cost + w * e * e
+        elif isinstance(ex, GravityResidual):
+            e = R @ ex.g_cur - ex.g_ref
+            Jr = torch.stack([dRs[0] @ ex.g_cur, dRs[1] @ ex.g_cur, dRs[2] @ ex.g_cur],
+                             dim=-1)
+            J = torch.cat([torch.zeros((3, 3), dtype=torch.float32, device=dev), Jr],
+                          dim=-1)
+            H = H + w * J.T @ J
+            g = g + w * J.T @ e
+            cost = cost + w * torch.sum(e * e)
+        else:
+            raise TypeError(f"unknown extra residual {type(ex)}")
+    return cost, H, g
+
+
+def _evaluate(b: _Block, pose, saturation, extras=()):
+    """Robust cost, normal equations H (6,6) and gradient g (6,) at `pose`,
+    sensor blocks included."""
     R, t = se3.jpose_to_rt(pose)
     dRs = rotation_derivatives(pose[3:6])                 # (3 params, 3, 3)
     d = b.X @ R.T + t - b.P                               # (Q, 3)
@@ -91,7 +130,10 @@ def _evaluate(b: _Block, pose, saturation):
     H = torch.einsum("qki,qkj->ij", wJ, J)
     g = torch.einsum("qki,qk->i", wJ, e)
     cost = torch.sum(b.w * tukey_rho(s, saturation))
-    return cost, H, g
+    if not extras:
+        return cost, H, g
+    ec, eH, eg = _extra_terms(extras, R, t, dRs)
+    return cost + ec, H + eH, g + eg
 
 
 class LMResult(NamedTuple):
@@ -103,14 +145,12 @@ class LMResult(NamedTuple):
 
 def robust_lm(blocks: Sequence[Matches], pose0, saturation, cfg: SolverConfig,
               lm_max_iter: int, extras=()) -> LMResult:
-    """LM minimization of the robustified match cost starting at pose0."""
-    if extras:
-        raise NotImplementedError("sensor constraint residuals are not ported "
-                                  "yet (ROADMAP.md, Queue 1: sensor constraints)")
+    """LM minimization of the robustified match cost, plus the sensor
+    blocks `extras`, starting at pose0."""
     b = _block(blocks[0]) if len(blocks) == 1 else _Block(
         *(torch.cat(parts) for parts in zip(*(_block(m) for m in blocks))))
     dev = pose0.device
-    cost, H, g = _evaluate(b, pose0, saturation)
+    cost, H, g = _evaluate(b, pose0, saturation, extras)
     pose = pose0
     lam = torch.full((), cfg.initial_lm_lambda, dtype=pose0.dtype, device=dev)
     nsucc = torch.ones((), dtype=torch.int32, device=dev)
@@ -129,7 +169,7 @@ def robust_lm(blocks: Sequence[Matches], pose0, saturation, cfg: SolverConfig,
         if free is not None:
             delta = delta * free
         pose_new = pose + delta
-        cost_new, H_new, g_new = _evaluate(b, pose_new, saturation)
+        cost_new, H_new, g_new = _evaluate(b, pose_new, saturation, extras)
         finite = torch.isfinite(cost_new) & torch.all(torch.isfinite(delta))
         accept = finite & (cost_new < cost) & ~done
         small = accept & (cost - cost_new

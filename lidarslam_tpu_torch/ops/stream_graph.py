@@ -8,8 +8,11 @@ reads nothing on the host, so one steady-state step can be captured as a
 of a frame then launch as one graph instead of one Python call each.
 
 - Static buffers: the `StreamState` tensors, one input record of bytes per
-  sweep (`WireRecord`: the flat wire at a fixed capacity P plus the stamp,
-  so the graph's shapes never change) and the azimuthal resolution. The
+  sweep (`WireRecord`: the flat wire at a fixed capacity P plus the stamp
+  and the sensor residual blocks, so the graph's shapes never change) and
+  the azimuthal resolution. The graph holds the blocks of the kinds it was
+  built with (`blocks`); a sweep without a measurement carries its block
+  with `valid` off, which adds exactly nothing to the solve. The
   step writes the new state into the state buffers in place; a new segment
   `seed`s them with `copy_`, never by rebinding.
 - Warm-up: the first `WARMUP_STEPS` steady-state steps are real sweeps of
@@ -36,8 +39,14 @@ import torch
 from lidarslam_tpu_torch.config import SlamConfig
 from lidarslam_tpu_torch.ops import pipeline
 from lidarslam_tpu_torch.ops.frame import FlatRangeImage
+from lidarslam_tpu_torch.sensors.constraints import (GravityResidual, OdomResidual,
+                                                     inactive_gravity, inactive_odom)
 
 WARMUP_STEPS = 2
+# the sensor blocks a record carries, in order, and their inactive values
+BLOCK_KINDS = (OdomResidual, GravityResidual)
+_INACTIVE = (inactive_odom(), inactive_gravity())
+_BLOCK_LEN = 16   # float32 slots of the record's block area: 6 odometry + 8 gravity
 
 
 class WireRecord:
@@ -45,6 +54,8 @@ class WireRecord:
     firings and a flat-wire capacity of P points:
 
         [t_min f32 | t_scale f32 | stamp f32 | counts i32 (R)]
+        [sensor blocks f32 (16): odometry prev_pos (3), distance, weight,
+         valid | gravity g_ref (3), g_cur (3), weight, valid | 2 unused]
         [xyz_q i16 (P, 3)] [meta u8 (P, 2)]   padded to 16 bytes
 
     Every field starts at a multiple of its own size, so the fields are
@@ -53,37 +64,50 @@ class WireRecord:
     def __init__(self, n_rings: int, max_points: int, capacity: int):
         self.shape = (n_rings, max_points)
         self.capacity = capacity
-        self._xyz = 12 + 4 * n_rings
+        self._blocks = 12 + 4 * n_rings
+        self._xyz = self._blocks + 4 * _BLOCK_LEN
         self._meta = self._xyz + 6 * capacity
         self.nbytes = -(-(self._meta + 2 * capacity) // 16) * 16
 
-    def pack(self, flats, stamps) -> torch.Tensor:
+    def pack(self, flats, stamps, extras=None) -> torch.Tensor:
         """(n, nbytes) uint8 records of n FlatRangeImages (numpy, capacity
-        P) and their stamps, in pinned host memory where there is a GPU."""
+        P), their stamps and their sensor residual blocks (per sweep a
+        sequence of host residuals; a kind missing is written inactive), in
+        pinned host memory where there is a GPU."""
         out = torch.zeros((len(flats), self.nbytes), dtype=torch.uint8,
                           pin_memory=torch.cuda.is_available())
         rows = out.numpy()
         R, P = self.shape[0], self.capacity
-        for row, flat, stamp in zip(rows, flats, stamps):
+        extras = extras or [()] * len(flats)
+        for row, flat, stamp, ex in zip(rows, flats, stamps, extras):
             if flat.xyz_q.shape != (P, 3):
                 raise ValueError(f"flat wire of capacity {flat.xyz_q.shape[0]}, "
                                  f"the record holds {P}")
             row[0:12].view(np.float32)[:] = (flat.t_min, flat.t_scale, stamp)
-            row[12:self._xyz].view(np.int32)[:] = flat.counts
+            row[12:self._blocks].view(np.int32)[:] = flat.counts
+            blocks = [next((e for e in ex if isinstance(e, kind)), inactive)
+                      for kind, inactive in zip(BLOCK_KINDS, _INACTIVE)]
+            vals = np.concatenate([np.asarray(v, np.float32).reshape(-1)
+                                   for b in blocks for v in b])
+            row[self._blocks:self._blocks + 4 * len(vals)].view(np.float32)[:] = vals
             row[self._xyz:self._meta].view(np.int16)[:] = flat.xyz_q.reshape(-1)
             row[self._meta:self._meta + 2 * P] = flat.meta.reshape(-1)
         return out
 
     def unpack(self, buf: torch.Tensor):
-        """(FlatRangeImage, stamp ()) as views of one record `buf`."""
+        """(FlatRangeImage, stamp (), (OdomResidual, GravityResidual)) as
+        views of one record `buf` (each `valid` a comparison of its slot)."""
         R, P = self.shape[0], self.capacity
         head = buf[0:12].view(torch.float32)
         flat = FlatRangeImage(
             xyz_q=buf[self._xyz:self._meta].view(torch.int16).view(P, 3),
             meta=buf[self._meta:self._meta + 2 * P].view(P, 2),
             t_min=head[0], t_scale=head[1],
-            counts=buf[12:self._xyz].view(torch.int32), shape=self.shape)
-        return flat, head[2]
+            counts=buf[12:self._blocks].view(torch.int32), shape=self.shape)
+        b = buf[self._blocks:self._xyz].view(torch.float32)
+        odom = OdomResidual(prev_pos=b[0:3], distance=b[3], weight=b[4], valid=b[5] > 0.5)
+        grav = GravityResidual(g_ref=b[6:9], g_cur=b[9:12], weight=b[12], valid=b[13] > 0.5)
+        return flat, head[2], (odom, grav)
 
 
 def _leaves(tree):
@@ -123,8 +147,10 @@ class StreamGraph:
     """The streaming step on one CUDA device, replayed as a CUDA graph.
     Owns the static state; see the module docstring."""
 
-    def __init__(self, cfg: SlamConfig, map_cfgs: tuple, device, wire: WireRecord):
+    def __init__(self, cfg: SlamConfig, map_cfgs: tuple, device, wire: WireRecord,
+                 blocks=(False, False)):
         self.cfg = cfg
+        self.blocks = tuple(blocks)   # per BLOCK_KINDS: the graph holds that block
         self.map_cfgs = map_cfgs
         self.device = torch.device(device)
         self.wire = wire
@@ -147,12 +173,13 @@ class StreamGraph:
     def set_az(self, az_resolution: float):
         self.az.fill_(float(np.float32(az_resolution)))
 
-    def eager_step(self, ri, stamp: float, first_frame: bool):
+    def eager_step(self, ri, stamp: float, first_frame: bool, extras=()):
         """One step outside the graph (a segment's first sweep, on the
-        per-sweep wire). Returns (packed (67,), kps_flat)."""
+        per-sweep wire; `extras` its sensor blocks as device tensors).
+        Returns (packed (67,), kps_flat)."""
         stamp_t = torch.full((), stamp, dtype=torch.float32, device=self.device)
         new, packed, kps_flat = pipeline.process_frame_stream(
-            ri, self.state, stamp_t, self.az, self.cfg, self.map_cfgs, first_frame)
+            ri, self.state, stamp_t, self.az, self.cfg, self.map_cfgs, first_frame, extras)
         assign_tree(self.state, new)
         return packed, kps_flat
 
@@ -175,9 +202,10 @@ class StreamGraph:
         return packed_out, kps_out
 
     def _body(self):
-        flat, stamp = self.wire.unpack(self.record)
+        flat, stamp, blocks = self.wire.unpack(self.record)
+        extras = tuple(b for b, held in zip(blocks, self.blocks) if held)
         new, packed, kps_flat = pipeline.process_frame_stream(
-            flat, self.state, stamp, self.az, self.cfg, self.map_cfgs, False)
+            flat, self.state, stamp, self.az, self.cfg, self.map_cfgs, False, extras)
         assign_tree(self.state, new)
         return packed, kps_flat
 

@@ -12,8 +12,12 @@ flag (RollingGrid.cxx:117-442 semantics):
   then kyz, then kx) carrying one permutation that gathers the payload.
   Compaction is a stable sort on the drop flag, which keeps the kept slots
   in leaf-key order — the k-NN kernel's block pruning relies on that.
+  CENTROID keeps the old point of a leaf and blends the batch's run mean
+  into it; CENTER_POINT keeps the point nearest the leaf center.
 - **Roll**: shift the window by whole outer voxels; coordinates stay
   origin-relative float32 (the host tracks the float64 origin).
+- **Decay** (`clear_old_points`): removable points older than
+  `decaying_threshold` leave the map.
 - **Submap**: a masked view over the map slots (bbox + moving-object filter).
 - **k-NN**: `brute_knn` goes through `cuda_knn.knn` (kernel on CUDA,
   chunked exact scan on CPU).
@@ -28,6 +32,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from lidarslam_tpu_torch.config import MapConfig, SamplingMode
@@ -83,13 +88,6 @@ def device_f32(x, device):
     return torch.full((), float(x), dtype=torch.float32, device=device)
 
 
-def _check_sampling(mode):
-    if mode not in (SamplingMode.FIRST, SamplingMode.LAST, SamplingMode.MAX_INTENSITY):
-        raise NotImplementedError(
-            f"sampling mode {SamplingMode(mode).name} is not ported yet "
-            "(ROADMAP.md, Queue 1: CENTROID/CENTER_POINT sampling)")
-
-
 def _leaf_keys(xyz, valid, cfg: MapConfig):
     """Two-part lexicographic leaf key (kx, kyz); invalid/out-of-window
     points get (BIG, BIG)."""
@@ -114,21 +112,66 @@ def _stable_lexsort(keys):
     return perm
 
 
+def _sampling_prio(xyz, inten, order, mode, cfg: MapConfig):
+    """Winner priority per sampling mode (ascending: smaller wins).
+    CENTER_POINT measures from the leaf center with the JAX package's
+    floor((xyz + half) / leaf) — a division, not `_leaf_keys`' product by
+    the inverse, whose different rounding would flip ties."""
+    if mode in (SamplingMode.FIRST, SamplingMode.CENTROID):
+        return order
+    if mode == SamplingMode.LAST:
+        return -order
+    if mode == SamplingMode.MAX_INTENSITY:
+        return -inten
+    half = half_extent(cfg)
+    li = torch.floor((xyz + half) / cfg.leaf_size)
+    d = xyz - _fma(li + 0.5, cfg.leaf_size, -half)
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    return torch.sqrt(_fma(z, z, _fma(y, y, x * x)))
+
+
+def _fma(a, b, c):
+    """a * b + c in float32 rounded once, as XLA:CPU contracts the JAX
+    package's center and norm: a product of two float32 is exact in
+    float64, so only the sum rounds (twice, which differs from one
+    rounding with odds of ~2^-28). Equal distances then rank as there.
+    Python numbers stand for their float32 values."""
+    def f64(v):
+        return v.double() if isinstance(v, torch.Tensor) else float(np.float32(v))
+    return (f64(a) * f64(b) + f64(c)).float()
+
+
+def rev_segment_scan(seg, xs):
+    """Suffix sums within equal-`seg` runs (runs contiguous): out[i] = sum of
+    x[i..e) where e is the end of i's run, so a run's first element holds
+    the run's total. The JAX package's Hillis-Steele doubling scan
+    (`prims.rev_segment_scan` with add), kept for its summation order: the
+    CENTROID means are then bit-equal to JAX's, which neither a cumsum
+    difference (it cancels at map coordinates) nor `index_add_` (atomics
+    on CUDA, an order that varies from run to run) would give."""
+    n = seg.shape[0]
+    out = list(xs)
+    s = 1
+    while s < n:
+        pad = torch.full((s,), -1, dtype=seg.dtype, device=seg.device)
+        same = torch.cat([seg[s:], pad]) == seg
+        out = [torch.where(same, x + torch.cat([x[s:], torch.zeros_like(x[:s])]), x)
+               for x in out]
+        s *= 2
+    return out
+
+
 def _reduce_batch(new_xyz, new_intensity, new_valid, cfg: MapConfig):
     """Per-leaf reduction of the incoming batch alone: one winner per leaf
-    by `cfg.sampling`; losers' keys become BIGKEY."""
+    by `cfg.sampling` (CENTROID: the winner's coordinates become the run's
+    mean, weighted downstream as one sample); losers' keys become BIGKEY."""
     K = new_xyz.shape[0]
     mode = cfg.sampling
     xyz = new_xyz.to(torch.float32)
     inten = new_intensity.to(torch.float32)
     kx, kyz, _ = _leaf_keys(xyz, new_valid, cfg)
     order = torch.arange(K, dtype=torch.float32, device=xyz.device)
-    if mode == SamplingMode.FIRST:
-        prio = order
-    elif mode == SamplingMode.LAST:
-        prio = -order
-    else:
-        prio = -inten
+    prio = _sampling_prio(xyz, inten, order, mode, cfg)
     perm = _stable_lexsort((kx, kyz, prio))
     skx, skyz = kx[perm], kyz[perm]
     sxyz, sint = xyz[perm], inten[perm]
@@ -137,9 +180,16 @@ def _reduce_batch(new_xyz, new_intensity, new_valid, cfg: MapConfig):
     prv_kx = torch.cat([big, skx[:-1]])
     prv_kyz = torch.cat([big, skyz[:-1]])
     first = key_ok & ~((skx == prv_kx) & (skyz == prv_kyz))
+    sx, sy, sz = sxyz[:, 0], sxyz[:, 1], sxyz[:, 2]
+    if mode == SamplingMode.CENTROID:
+        seg = torch.where(key_ok, torch.cumsum(first.to(torch.int32), 0) - 1, K)
+        okf = key_ok.to(torch.float32)
+        sums = rev_segment_scan(seg, [sx * okf, sy * okf, sz * okf, okf])
+        n = torch.clamp(sums[3], min=1.0)
+        sx, sy, sz = sums[0] / n, sums[1] / n, sums[2] / n
     wkx = torch.where(first, skx, _BIGKEY)
     wkyz = torch.where(first, skyz, _BIGKEY)
-    return wkx, wkyz, sxyz[:, 0], sxyz[:, 1], sxyz[:, 2], sint
+    return wkx, wkyz, sx, sy, sz, sint
 
 
 def add_points(vmap_: VoxelMap, new_xyz, new_intensity, new_time, new_valid,
@@ -151,7 +201,6 @@ def add_points(vmap_: VoxelMap, new_xyz, new_intensity, new_time, new_valid,
     frames-per-voxel count bumped once and its stamp set to `current_time`.
     At capacity the winners farthest from the window center are evicted
     (never fixed points)."""
-    _check_sampling(cfg.sampling)
     dev = vmap_.xyz.device
     M = vmap_.xyz.shape[0]
     K = new_xyz.shape[0]
@@ -172,12 +221,12 @@ def add_points(vmap_: VoxelMap, new_xyz, new_intensity, new_time, new_valid,
     fix = torch.cat([vmap_.fixed, torch.full((K,), bool(fixed), device=dev)]).to(torch.int32)
     is_new = (torch.arange(N, device=dev) >= M).to(torch.int32)
 
-    if mode == SamplingMode.FIRST:
+    if mode in (SamplingMode.FIRST, SamplingMode.CENTROID):
         prio = is_new.to(torch.float32)          # old wins
     elif mode == SamplingMode.LAST:
         prio = -is_new.to(torch.float32)         # new wins
     else:
-        prio = -inten
+        prio = _sampling_prio(torch.stack([x, y, z], dim=-1), inten, None, mode, cfg)
     # existing fixed points always win their leaf (RollingGrid.cxx:218-219)
     prio = torch.where((fix == 1) & (is_new == 0), float("-inf"), prio)
 
@@ -206,6 +255,15 @@ def add_points(vmap_: VoxelMap, new_xyz, new_intensity, new_time, new_valid,
                             torch.where(l_old, nxt(scnt, 0), 0))
     has_fixed_old = ((sfix == 1) & (snew == 0)) | (l_old & (nxt(sfix, 0) == 1))
     touched = winner & any_new & ~has_fixed_old
+
+    if mode == SamplingMode.CENTROID:
+        # the winner is the old point where there is one (old wins); its
+        # loser carries the batch's run mean, weighted as one sample
+        c = scnt.to(torch.float32)
+        blend = touched & (snew == 0) & l_new
+        sx = torch.where(blend, (sx * c + nxt(sx, 0.0)) / (c + 1.0), sx)
+        sy = torch.where(blend, (sy * c + nxt(sy, 0.0)) / (c + 1.0), sy)
+        sz = torch.where(blend, (sz * c + nxt(sz, 0.0)) / (c + 1.0), sz)
 
     cur_t = device_f32(current_time, dev)
     out_time = torch.where(touched, cur_t, stim)
@@ -239,6 +297,14 @@ def add_points(vmap_: VoxelMap, new_xyz, new_intensity, new_time, new_valid,
         valid=slot_ok,
         overflow=vmap_.overflow + dropped,
     )
+
+
+def clear_old_points(vmap_: VoxelMap, current_time, cfg: MapConfig) -> VoxelMap:
+    """Drop the removable points older than `cfg.decaying_threshold`
+    (RollingGrid::ClearOldPoints); fixed points stay."""
+    age = device_f32(current_time, vmap_.time.device) - vmap_.time
+    keep = vmap_.valid & (vmap_.fixed | (age <= cfg.decaying_threshold))
+    return vmap_._replace(valid=keep)
 
 
 def compute_roll_offset(bbox_min, bbox_max, cfg: MapConfig):

@@ -24,9 +24,14 @@ The confidence surface (LCP overlap from the device, motion-limit checks
 on the host's float64 log) fills `overlap` and `comply_motion_limits` in
 every summary dict, on both paths.
 
+Wheel odometry and IMU gravity (`sensors/constraints.py`) are measured on
+the host and enter the localization solve as residual blocks, on both
+paths. In the CPU stream a sweep that carries them runs alone, as in the
+JAX package; on CUDA it stays in its window, since the graph replays each
+sweep's input record on its own and the blocks ride in that record.
+
 Multi-LiDAR (and its streaming step), pose-graph optimization, keypoint
-logs, sensor constraints, checkpoints and the debug surface are not ported
-yet (ROADMAP.md).
+logs, checkpoints and the debug surface are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -43,12 +48,14 @@ from lidarslam_tpu_torch import confidence
 from lidarslam_tpu_torch.config import (KEYPOINT_NAMES, EgoMotionMode, Keypoint,
                                        MappingMode, SlamConfig)
 from lidarslam_tpu_torch.core import se3
-from lidarslam_tpu_torch.ops import pipeline, stream_graph, voxel_map
+from lidarslam_tpu_torch.ops import pipeline, stream_graph, undistortion, voxel_map
 from lidarslam_tpu_torch.ops.frame import (Keypoints, KeypointsView, build_range_image,
                                            ensure_range_image,
                                            estimate_azimuthal_resolution,
                                            flatten_packed, stack_range_images,
                                            to_device_range_image)
+from lidarslam_tpu_torch.sensors.constraints import (ImuManager, WheelOdometryManager,
+                                                     on_device)
 
 
 def _shared_resolution(cfg: SlamConfig) -> float:
@@ -81,7 +88,6 @@ class Slam:
         self.device = torch.device(device)
         if len(cfg.used_types) == 0:
             raise ValueError("at least one keypoint type must be enabled")
-        pipeline.check_supported(cfg)
         if len({cfg.map_config(k).grid_size for k in cfg.used_types}) != 1:
             raise ValueError("all maps must share grid_size for the shared rolling window")
 
@@ -113,6 +119,7 @@ class Slam:
         self.overlap = -1.0
         self.comply_motion_limits = True
         self.total_matched_keypoints = 0
+        self.match_counts = np.zeros(3, np.int64)
         self.map_overflow = np.zeros(3, np.int64)
         self.latency = 0.0
         self.mapping_mode = cfg.mapping_mode
@@ -132,6 +139,9 @@ class Slam:
         self.motion_checker = confidence.MotionLimitChecker(
             cfg.confidence.time_window_duration, cfg.confidence.velocity_limits,
             cfg.confidence.acceleration_limits)
+        self.wheel_odom = WheelOdometryManager(cfg.wheel_odom_weight, cfg.wheel_odom_relative,
+                                               cfg.sensor_time_offset)
+        self.imu = ImuManager(cfg.imu_weight, cfg.sensor_time_offset)
         self._invalidate_submaps()
         if reset_log:
             self.n_frames = 0
@@ -215,6 +225,7 @@ class Slam:
         self._ensure_stream_state()
         first = not self._maps_populated and self._stream_enqueued == 0 \
             and self.n_frames == 0
+        extras = self._stream_extras(stamp)
         # until a valid azimuthal-resolution estimate exists (the first
         # sweep against preloaded maps) sweeps take the per-frame path,
         # which estimates it
@@ -222,9 +233,13 @@ class Slam:
                       or self.azimuthal_resolution > np.pi / 4)
         # on CUDA every steady-state sweep replays the graph, so a window of
         # one is still a window
-        if not first and not az_invalid and (self.cfg.stream_window > 1
-                                              or self._graph is not None):
-            self._window_buf.append((self._build_ri(frame, device=False), stamp))
+        windowed = not first and not az_invalid and (self.cfg.stream_window > 1
+                                                      or self._graph is not None)
+        # a sweep with sensor blocks runs alone after the buffered ones on
+        # the CPU, whose window step takes none; on CUDA the graph replays
+        # each record on its own, its blocks in the record
+        if windowed and (self._graph is not None or not extras):
+            self._window_buf.append((self._build_ri(frame, device=False), stamp, extras))
             if len(self._window_buf) >= self.cfg.stream_window:
                 self._dispatch_window()
         else:
@@ -234,14 +249,15 @@ class Slam:
             if az_invalid:
                 self.azimuthal_resolution = float(
                     estimate_azimuthal_resolution(ensure_range_image(ri)))
+            dev_extras = tuple(on_device(e, self.device) for e in extras)
             if self._graph is not None:
                 self._graph.set_az(self.azimuthal_resolution)
-                packed, kps_flat = self._graph.eager_step(ri, stamp, first)
+                packed, kps_flat = self._graph.eager_step(ri, stamp, first, dev_extras)
             else:
                 self._stream_state, packed, kps_flat = pipeline.process_frame_stream(
                     ri, self._stream_state, self._f32(stamp),
                     self._f32(self.azimuthal_resolution), self.cfg,
-                    self._map_cfgs_tuple, first)
+                    self._map_cfgs_tuple, first, dev_extras)
             self._stream_pending.append({"stamps": [stamp], "packed": packed,
                                          "kps_flat": kps_flat})
         self.last_stamp = frame["stamp"]
@@ -255,11 +271,7 @@ class Slam:
 
     def _check_stream_supported(self):
         """Raise where the config asks streaming for what is not ported."""
-        cfg = self.cfg
-        if cfg.wheel_odom_weight > 0 or cfg.imu_weight > 0:
-            raise NotImplementedError("sensor constraints in the stream are not "
-                                      "ported yet (ROADMAP.md, Queue 1)")
-        if not cfg.compress_upload:
+        if not self.cfg.compress_upload:
             raise NotImplementedError("streaming takes the quantized wire "
                                       "(compress_upload=True) only")
 
@@ -269,13 +281,15 @@ class Slam:
         records and one graph replay each, on the CPU the eager window."""
         buf, self._window_buf = self._window_buf, []
         cfg = self.cfg
-        stamps = [s for _, s in buf]
+        stamps = [s for _, s, _ in buf]
         if self._graph is not None:
+            self._graph_with_blocks([e for _, _, ex in buf for e in ex])
             wire = self._graph.wire
-            records = wire.pack([flatten_packed(r, wire.capacity) for r, _ in buf], stamps)
+            records = wire.pack([flatten_packed(r, wire.capacity) for r, _, _ in buf],
+                                stamps, [ex for _, _, ex in buf])
             packed, kps_flat = self._graph.run(records.to(self.device, non_blocking=True))
         else:
-            ris = [r for r, _ in buf]
+            ris = [r for r, _, _ in buf]
             if cfg.flat_wire:
                 ris = [flatten_packed(r, cfg.wire_capacity) for r in ris]
             self._stream_state, packed, kps_flat = pipeline.process_stream_window(
@@ -295,7 +309,7 @@ class Slam:
             self._dispatch_window()
             return
         buf, self._window_buf = self._window_buf, []
-        for ri_host, stamp in buf:
+        for ri_host, stamp, _ in buf:
             self._stream_state, packed, kps_flat = pipeline.process_frame_stream(
                 to_device_range_image(ri_host, self.device), self._stream_state,
                 self._f32(stamp), self._f32(self.azimuthal_resolution), self.cfg,
@@ -344,10 +358,43 @@ class Slam:
                     or ecfg.n_rings * ecfg.max_ring_points
                 self._graph = stream_graph.StreamGraph(
                     cfg, self._map_cfgs_tuple, self.device,
-                    stream_graph.WireRecord(ecfg.n_rings, ecfg.max_ring_points, cap))
+                    stream_graph.WireRecord(ecfg.n_rings, ecfg.max_ring_points, cap),
+                    blocks=(self.wheel_odom.weight > 1e-6, self.imu.weight > 1e-6))
             self._graph.seed(state, self.azimuthal_resolution)
             state = self._graph.state
         self._stream_state = state
+
+    def _graph_with_blocks(self, extras):
+        """Make the graph hold a block of each kind in `extras`: a graph
+        without one is replaced by one with it, seeded with the current
+        state (captured anew, as the JAX package compiles a new program
+        for a new extras structure)."""
+        g = self._graph
+        need = tuple(have or any(isinstance(e, kind) for e in extras)
+                     for have, kind in zip(g.blocks, stream_graph.BLOCK_KINDS))
+        if need == g.blocks:
+            return
+        self._graph = stream_graph.StreamGraph(self.cfg, self._map_cfgs_tuple, self.device,
+                                               g.wire, blocks=need)
+        self._graph.seed(g.state, self.azimuthal_resolution)
+        self._stream_state = self._graph.state
+
+    def _stream_extras(self, stamp):
+        """The sweep's sensor residual blocks (host values, prev_pos rebased
+        to the map frame), computed at enqueue time as the JAX package does:
+        in relative mode `prev_pos` only moves in `add_frame`, so a streamed
+        sweep measures from the last synchronous pose (ROADMAP Queue 3)."""
+        extras = []
+        if self.wheel_odom.can_be_used():
+            r = self.wheel_odom.compute_constraint(stamp)
+            if r is not None:
+                extras.append(r._replace(
+                    prev_pos=r.prev_pos - np.asarray(self.map_origin, np.float32)))
+        if self.imu.can_be_used():
+            r = self.imu.compute_constraint(stamp)
+            if r is not None:
+                extras.append(r)
+        return extras
 
     def flush(self) -> list:
         """Bring the streamed results to the host (one transfer) and into
@@ -383,6 +430,7 @@ class Slam:
                 self.covariance = u["cov"]
                 self.failure = u["failed"]
                 self.total_matched_keypoints = u["total"]
+                self.match_counts = u["counts"]
                 self.overlap = u["overlap"]
                 if u["is_kf"]:
                     self.kf_counter += 1
@@ -442,6 +490,8 @@ class Slam:
 
         prev_rel = self.Tworld.copy()
         prev_rel[:3, 3] -= self.map_origin
+        # sensor constraints (Slam::ComputeSensorConstraints)
+        extras = tuple(on_device(e, self.device) for e in self._stream_extras(stamp))
         kf_rel = self.kf_last_pose.copy()
         kf_rel[:3, 3] -= self.map_origin
         t_prev = self.log_trajectory[-1]["time"] if self.log_trajectory else stamp
@@ -453,6 +503,7 @@ class Slam:
             az_resolution=float(np.float32(self.azimuthal_resolution)),
             kf_last_pose=self._pose_tensor(kf_rel),
             kf_counter=int(self.kf_counter),
+            extras=extras,
             map_update=self.mapping_mode != MappingMode.NONE,
             submap_cache=self._submap_cache,
             cache_stale=self._cache_stale)
@@ -465,6 +516,7 @@ class Slam:
         self._submap_cache = res.submap_cache
         self._cache_stale = res.cache_stale
         self._device_keypoints = res.keypoints
+        self.current_keypoints = {Keypoint(i): res.keypoints[i] for i in range(3)}
         self.current_warp = res.warp
         if cfg.verbosity >= 1:
             for t in cfg.used_types:
@@ -474,6 +526,7 @@ class Slam:
                               "extractor keypoint budget for this sensor")
         self.failure = u["failed"]
         self.total_matched_keypoints = u["total"]
+        self.match_counts = u["counts"]
         self.overlap = u["overlap"]
         self._update_map_overflow(u["map_overflow"])
         if self.failure:
@@ -491,6 +544,8 @@ class Slam:
         shift = np.asarray(u["roll_offset"], np.float64) * voxel_map.effective_resolution(
             self._map_cfgs_tuple[int(cfg.used_types[0])])
         self.map_origin = self.map_origin + shift
+        if cfg.wheel_odom_relative and not self.failure:
+            self.wheel_odom.set_reference_pose(self.Tworld[:3, 3])
 
         self._check_motion_limits(stamp)
         self._log_state(stamp)
@@ -559,6 +614,100 @@ class Slam:
         xyz, inten, t, fixed = voxel_map.gather_valid_points(self.maps[k], clean,
                                                             self.map_cfgs[k])
         return xyz + self.map_origin.astype(np.float32), inten, t, fixed
+
+    def get_target_submap(self, k: Keypoint) -> np.ndarray:
+        """World-frame points of the submap the matcher targets
+        (Slam::GetTargetSubMap): the selection of the last rebuild, or the
+        whole map when none is valid (before the first localization, after
+        a map update, for a decaying type). In a streaming segment it reads
+        the device state, which waits for the enqueued sweeps."""
+        ti = int(k)
+        origin = self.map_origin.astype(np.float32)
+        if self._stream_state is not None:
+            cache = self._stream_state.submap_cache[ti]
+            m = self._stream_state.maps[ti]
+            stale = bool(self._stream_state.cache_stale)
+            origin = (self._stream_state.origin_vox.cpu().numpy().astype(np.float64)
+                      * voxel_map.effective_resolution(self.map_cfgs[k])).astype(np.float32)
+        else:
+            cache = self._submap_cache[ti]
+            m = self.maps.get(k)
+            stale = bool(self._cache_stale)
+        if m is None:
+            return np.zeros((0, 3), np.float32)
+        if cache is None or stale:
+            xyz, _, _, _ = voxel_map.gather_valid_points(m, False, self.map_cfgs[k])
+            return xyz + origin
+        sel = (cache.selected & m.valid).cpu().numpy()
+        return m.xyz.cpu().numpy()[sel] + origin
+
+    def get_keypoints(self, k: Keypoint, world: bool = False) -> np.ndarray:
+        """The last sweep's keypoints of one type (BASE frame, or WORLD with
+        `world`, undistorted by the last `add_frame`'s warp)."""
+        kp = self.current_keypoints.get(k)
+        if kp is None:
+            return np.zeros((0, 3), np.float32)
+        n = int(kp.count)
+        xyz = kp.xyz
+        if world and self.current_warp is not None:
+            xyz = undistortion.warp_points(torch.as_tensor(xyz, device=self.device),
+                                           torch.as_tensor(kp.time, device=self.device),
+                                           self.current_warp)
+        pts = (xyz.cpu().numpy() if isinstance(xyz, torch.Tensor) else np.asarray(xyz))[:n]
+        if world:
+            pts = pts @ np.asarray(self.Tworld[:3, :3].T, np.float32) + \
+                np.asarray(self.Tworld[:3, 3], np.float32)
+        return pts
+
+    def set_map_update(self, mode):
+        """Live mapping-mode switch (Slam::SetMapUpdate): takes effect on the
+        next sweep; in a streaming segment the buffered sweeps run first."""
+        self.mapping_mode = MappingMode(mode)
+        if self._stream_state is not None:
+            self._drain_window()
+            self._stream_state.map_update.fill_(self.mapping_mode != MappingMode.NONE)
+
+    def get_map_update(self):
+        return self.mapping_mode
+
+    # ------------------------------------------------------------------
+    # External sensor API (Slam.cxx:1584-1598); weights and the time offset
+    # take effect on the next sweep
+    # ------------------------------------------------------------------
+
+    def add_wheel_odom_measurement(self, time: float, distance: float):
+        self.wheel_odom.add_measurement(time, distance)
+
+    def add_gravity_measurement(self, time: float, acceleration):
+        self.imu.add_measurement(time, acceleration)
+
+    def clear_sensor_measurements(self):
+        self.wheel_odom.reset()
+        self.imu.reset()
+
+    def set_sensor_data(self, file_name: str) -> dict:
+        """Clear and reload the sensor measurements from a delimited text
+        file (vtkSlam::SetSensorData): columns `time`+`odom` feed wheel
+        odometry, `time`+`acc_x/y/z` IMU gravity. Returns the row counts."""
+        from lidarslam_tpu_torch.io.sensor_csv import load_sensor_csv
+
+        self.clear_sensor_measurements()
+        if not file_name:
+            return {"odometry": 0, "imu": 0}
+        return load_sensor_csv(file_name, wheel_odom=self.wheel_odom, imu=self.imu)
+
+    def set_wheel_odom_weight(self, w: float):
+        self.wheel_odom.weight = float(w)
+
+    def set_gravity_weight(self, w: float):
+        self.imu.weight = float(w)
+
+    def set_sensor_time_offset(self, dt: float):
+        self.wheel_odom.time_offset = float(dt)
+        self.imu.time_offset = float(dt)
+
+    def get_sensor_time_offset(self) -> float:
+        return float(self.wheel_odom.time_offset)
 
     def load_numpy_state(self, state: dict):
         """Continue from another engine's state (see state.py)."""

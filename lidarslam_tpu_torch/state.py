@@ -18,7 +18,11 @@ State dict keys:
   reads, is the last of "trajectory_times");
 - optional "submap_selected": {type: (M,) bool} and "cache_stale": the
   lazily rebuilt submap selection, so the next sweep matches against the
-  same submap as the exporting engine would.
+  same submap as the exporting engine would (a type whose map decays keeps
+  none: it rebuilds its submap every sweep);
+- optional "sensors": {"odom_prev_distance", "odom_prev_pos",
+  "gravity_ref"} — the sensor managers' references (the measurements
+  themselves are fed through the Slam's sensor API).
 
 `stream_state_from_numpy` does the same for the streaming mode's device
 state: a `StreamState` of the JAX package pulled to numpy (for example with
@@ -96,6 +100,12 @@ def load_numpy_state(slam, state: dict):
         slam._device_keypoints = tuple(
             keypoints_from_numpy(kps[Keypoint(i)], dev) if Keypoint(i) in kps else None
             for i in range(3))
+    sensors = state.get("sensors")
+    if sensors is not None:
+        d = sensors.get("odom_prev_distance")
+        slam.wheel_odom.prev_distance = None if d is None else float(d)
+        slam.wheel_odom.prev_pos = np.asarray(sensors["odom_prev_pos"], np.float64).copy()
+        slam.imu.gravity_ref = np.asarray(sensors["gravity_ref"], np.float64).copy()
     slam._invalidate_submaps()
     selected = state.get("submap_selected")
     if selected is not None:

@@ -384,3 +384,98 @@ def test_cuda_full_pipeline_matches_cpu(cuda):
             assert abs(a["n_matches"] - b["n_matches"]) <= 0.01 * max(b["n_matches"], 1)
             assert abs(a["overlap"] - b["overlap"]) < 1e-3
             assert a["comply_motion_limits"] == b["comply_motion_limits"]
+
+
+def _ext_cfg(blobs):
+    """The extended settings at the test size (tests/test_torch_blobs_sensors.py
+    holds them against JAX on the CPU): a CENTROID plane map, an edge map on
+    CENTER_POINT decaying after 0.35 s, both sensors; `blobs`: blobs on a
+    CENTER_POINT blob map."""
+    import dataclasses
+
+    from lidarslam_tpu_torch.config import ConfidenceConfig, SamplingMode
+
+    cfg = _small_stream_cfg().replace(
+        stream_window=2,
+        confidence=ConfidenceConfig(overlap_sampling_ratio=0.125, time_window_duration=0.5,
+                                    velocity_limits=(5.0, 45.0),
+                                    acceleration_limits=(10.0, 90.0)),
+        wheel_odom_weight=1.0, wheel_odom_relative=True, imu_weight=0.5)
+    cfg = cfg.replace(
+        plane_map=dataclasses.replace(cfg.plane_map, sampling=SamplingMode.CENTROID),
+        edge_map=dataclasses.replace(cfg.edge_map, sampling=SamplingMode.CENTER_POINT,
+                                     decaying_threshold=0.35))
+    if blobs:
+        cfg = cfg.replace(use_blobs=True, blob_map=dataclasses.replace(
+            cfg.blob_map, sampling=SamplingMode.CENTER_POINT))
+    return cfg
+
+
+def _ext_frames(n):
+    import chip_smoke
+
+    frames = synthetic.generate_sequence(
+        n_frames=n, motion_distortion=True, sensor=synthetic.SensorModel(range_noise=0.005))
+    return frames, chip_smoke.sensor_measurements(
+        synthetic.straight_then_turn_trajectory(), 0.35)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_blob_shapes(cuda):
+    """The blobs' two call shapes against a 0.30 m CENTER_POINT map: the
+    localization query (Q=2048, k=10, pruned at the 5 m gate) and the
+    overlap's 1-NN against the blob submap (Q=8192, k=1, pruned at 2 m)."""
+    from lidarslam_tpu_torch.config import SamplingMode
+
+    frames = synthetic.generate_sequence(
+        n_frames=3, motion_distortion=False, sensor=synthetic.SensorModel(n_azimuth=900))
+    cfg = MapConfig(leaf_size=0.3, capacity=1 << 15, grid_size=20, voxel_resolution=5.0,
+                    sampling=SamplingMode.CENTER_POINT)
+    m = tvm.VoxelMap.empty(cfg, cuda)
+    origin = frames[0]["gt_pose"][:3, 3]
+    for f in frames[:2]:
+        w = f["xyz"] @ f["gt_pose"][:3, :3].T + f["gt_pose"][:3, 3] - origin
+        m = tvm.add_points(m, torch.from_numpy(w.astype(np.float32)).to(cuda),
+                           torch.from_numpy(f["intensity"]).to(cuda),
+                           torch.zeros(len(w), device=cuda),
+                           torch.ones(len(w), dtype=torch.bool, device=cuda), 0.0, cfg)
+    xyz, valid = m.xyz.cpu().numpy(), m.valid.cpu().numpy()
+    assert valid.sum() > 5000
+    for q, k, radius, seed in ((2048, 10, RADIUS, 21), (8192, 1, 2.0, 22)):
+        queries, q_valid = _queries_off(xyz, valid, q, seed=seed)
+        _check_kernel(cuda, xyz, valid, queries, q_valid, k, radius=radius)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blobs", [False, True])
+def test_cuda_ext_pipeline_matches_cpu(cuda, blobs):
+    """The extended settings on the card against the CPU, through add_frame
+    and through the stream (windows whose records carry both sensor
+    blocks, replayed by a graph holding both).
+    Without blobs 8 sweeps within 0.01 m; with blobs the first localization
+    from equal maps within 1e-3 m (the blob PCA gate reads rounding noise
+    on 4 mm-planar neighbourhoods, and later sweeps amplify it, as between
+    the JAX package and the port: tests/test_torch_blobs_sensors.py)."""
+    cfg = _ext_cfg(blobs)
+    frames, meas = _ext_frames(2 if blobs else 8)
+    tol, flips = (1e-3, 0.03) if blobs else (0.01, 0.01)
+    runs = {}
+    for name, dev in (("gpu", cuda), ("cpu", "cpu")):
+        for path in ("sync", "stream"):
+            slam = Slam(cfg, device=dev)
+            for t, d, a in zip(*meas):
+                slam.add_wheel_odom_measurement(float(t), float(d))
+                slam.add_gravity_measurement(float(t), a)
+            if path == "sync":
+                runs[name + path] = [slam.add_frame(f) for f in frames]
+            else:
+                runs[name + path] = _stream(slam, frames, None)
+                if name == "gpu":
+                    assert slam._graph.blocks == (True, True)
+    for path in ("sync", "stream"):
+        for a, b in zip(runs["gpu" + path], runs["cpu" + path]):
+            assert not a["failure"] and not b["failure"]
+            assert np.linalg.norm(a["pose"][:3, 3] - b["pose"][:3, 3]) < tol
+            assert abs(a["n_matches"] - b["n_matches"]) <= flips * max(b["n_matches"], 1)
+            assert abs(a["overlap"] - b["overlap"]) < 1e-3
+            assert a["comply_motion_limits"] == b["comply_motion_limits"]

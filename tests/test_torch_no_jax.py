@@ -24,12 +24,16 @@ from lidarslam_tpu_torch.ops.stream_graph import StreamGraph, WireRecord
 from lidarslam_tpu_torch.ops.undistortion import compute_warp, jinterpolate_pose, warp_points
 from lidarslam_tpu_torch.confidence import MotionLimitChecker, lcp_overlap
 from lidarslam_tpu_torch.state import stream_state_from_numpy
+# the sensor surface: constraints and the sensor CSV
+from lidarslam_tpu_torch.sensors.constraints import ImuManager, WheelOdometryManager
+from lidarslam_tpu_torch.io.sensor_csv import load_sensor_csv
 assert callable(Slam.add_frame_async) and callable(Slam.flush)
+assert callable(Slam.set_sensor_data) and callable(load_sensor_csv)
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'lidarslam_tpu.'))
              or m == 'lidarslam_tpu')
 print(len(names), bad)
-assert len(names) >= 17, names
+assert len(names) >= 20, names
 assert not bad, bad
 """
 

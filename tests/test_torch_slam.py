@@ -182,18 +182,6 @@ def test_map_overflow_tracked_after_insert(runs, capsys):
             assert "map dropped" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("change", [
-    dict(use_blobs=True),
-    dict(plane_map=tcfg.MapConfig(leaf_size=0.60, decaying_threshold=2.0)),
-    dict(edge_map=tcfg.MapConfig(leaf_size=0.30, sampling=tcfg.SamplingMode.CENTROID)),
-    dict(plane_map=tcfg.MapConfig(leaf_size=0.60,
-                                  sampling=tcfg.SamplingMode.CENTER_POINT)),
-])
-def test_unported_branches_raise(change):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TSlam(tcfg.SlamConfig(**change), device="cpu")
-
-
 def test_slam_needs_a_device():
     with pytest.raises(TypeError, match="device"):
         TSlam(tcfg.SlamConfig())

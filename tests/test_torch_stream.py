@@ -251,9 +251,10 @@ def test_window_stack_and_wire_record_roundtrip(runs):
     for w, flat in enumerate(flats):
         want = tframe.to_device_range_image(flat).unpack()
         _assert_ri_equal(tpipe.window_frame(stack, w).unpack(), want)
-        rec, stamp = wire.unpack(records[w])
+        rec, stamp, (odom, grav) = wire.unpack(records[w])
         _assert_ri_equal(rec.unpack(), want)
         assert float(stamp) == stamps[w]
+        assert not bool(odom.valid) and not bool(grav.valid)   # no sensor blocks
 
 
 def test_flatten_keypoints_roundtrip():
@@ -443,8 +444,6 @@ def test_add_frame_next_frame_prefetch_is_identical(runs):
 
 
 @pytest.mark.parametrize("change", [
-    dict(wheel_odom_weight=1.0),
-    dict(imu_weight=1.0),
     dict(compress_upload=False),
 ])
 def test_stream_unported_options_raise(runs, change):

@@ -93,12 +93,3 @@ def test_extract_submap_view_masks_equal(min_frames):
                                      torch.tensor(nmin, dtype=torch.int32), tc)
         np.testing.assert_array_equal(vt.valid.numpy(), np.asarray(vj.valid))
         assert 0 < int(vt.valid.sum()) <= int(tm.valid.sum())
-
-
-@pytest.mark.parametrize("mode", ["CENTROID", "CENTER_POINT"])
-def test_unported_sampling_modes_raise(mode):
-    _, tc = _cfgs(mode, 64)
-    m = tvm.VoxelMap.empty(tc, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvm.add_points(m, torch.zeros(4, 3), torch.zeros(4), torch.zeros(4),
-                       torch.ones(4, dtype=torch.bool), 0.0, tc)
