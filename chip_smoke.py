@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. Phases, each printed as it goes:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: compile csrc/knn.cu with nvcc (sm_90a) from this checkout;
+2. build: compile csrc/knn.cu with nvcc (sm_90a) and the native host
+   ingest (native/*.cpp) with g++ into lidarslam_tpu_torch/_build/ from
+   this checkout; a native library that does not load fails the run;
 3. kernel vs plain: the k-NN kernel against its plain PyTorch version at the
    slice's shapes — (Q=2048, k=10) edges and (Q=4096, k=5) planes — on
    three 65,536-slot maps from the 30 rendered VLP-16 sweeps: one filled to
@@ -46,7 +48,15 @@ the CUDA toolkit. Phases, each printed as it goes:
    `torch.cuda.set_sync_debug_mode("error")` (no host sync), one replay
    against the eager step from the same state, and a torch.profiler window
    over one full window of replays (each of the four k-NN kernels runs
-   exactly twice per frame inside the graph; their device ms/frame);
+   exactly twice per frame inside the graph; their device ms/frame); the
+   same stream with `compress_upload=False` (float planes in a
+   FloatRecord graph) against vlp16_bench_float_stream_ref.npz, one
+   replay against the eager step; then, on the native ingest, the host
+   ingest per sweep (median of the 30: numpy and native window planes,
+   the native per-sweep byte wire) and the bench stream with its windows
+   dispatched inline (the port's dispatch) and on a worker thread (the
+   JAX package's), in turns, with ms/frame and idle share beside the
+   numpy run;
 6. the full pipeline: `full_config()` (REFINED undistortion, ego-motion
    registration after the extrapolation, LCP overlap on 8192 samples,
    motion limits) on 30 sweeps rendered with motion distortion, through
@@ -82,7 +92,24 @@ the CUDA toolkit. Phases, each printed as it goes:
    replays running each k-NN kernel 14 times per frame, and each call
    shape of the step (the blobs' localization query and overlap 1-NN
    included) against the plain version on its own inputs, timed beside
-   its bound.
+   its bound;
+8. the multi-LiDAR rig: `rig_config()` (full_config, device 1 with its own
+   copy of the extractor) on `render_rig`'s 30 acquisitions of two VLP-16s
+   (device 1 at RIG_OFFSET_POSE, RIG_DT_S later, so the merge truncates
+   2 x 2048 edges to 2048 slots and the time rebase moves device 1's
+   keypoints) through `add_frames` and `add_frames_async` + `flush`
+   against vlp16_rig_ref.npz / vlp16_rig_stream_ref.npz (0 failed, poses
+   within 0.01 m / 5 deg, n_matches per type within 1%, flags equal); the
+   rig graph's step under sync-debug "error" and one replay against it,
+   the host syncs of one whole add_frames_async counted, a window of
+   acquisitions profiled through `Slam.start_profiling` /
+   `stop_profiling` and read back from the trace file (10 executions of
+   each k-NN kernel per acquisition), the keypoint log's bytes, and each
+   k-NN call shape of the step against the plain version.
+
+Phases 4-7 pin the port's host ingest to numpy (`numpy_ingest`), on which
+their JAX references were made; phase 5's native runs and phase 8 take the
+native ingest.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero before printing a result.
@@ -92,11 +119,13 @@ The last line is one JSON object: {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -199,6 +228,51 @@ def ext_config():
         wheel_odom_weight=EXT_ODOM_WEIGHT, imu_weight=EXT_IMU_WEIGHT)
 
 
+# the rig's second VLP-16: mounted at the multi-LiDAR tests' OFFSET
+# (tests/test_multilidar_streaming.py) and starting each sweep RIG_DT_S after
+# device 0, so the acquisition's time rebase moves its keypoint times
+RIG_OFFSET_POSE = (0.4, 0.15, 0.05, 0.0, 0.0, 0.25)
+RIG_DT_S = 0.05
+
+
+def rig_config():
+    """full_config for a rig of two VLP-16s: device 1 has its own
+    ExtractorConfig (a copy of the bench's), so it keeps the keypoint path
+    in the stream even alone."""
+    import dataclasses
+
+    cfg = full_config()
+    return dataclasses.replace(cfg, device_extractors=((1, dataclasses.replace(cfg.extractor)),))
+
+
+def render_rig(n: int):
+    """n motion-distorted acquisitions of two VLP-16s (16 rings x 1800
+    firings) on the weaving street: device 0 is the bench sensor along the
+    drive, device 1 is mounted at RIG_OFFSET_POSE, rendered in its own frame
+    along base(t) @ offset, its sweeps starting RIG_DT_S later. Returns
+    (acquisitions as lists of two frame dicts with `device_id`, the (4,4)
+    offset)."""
+    from lidarslam_tpu_torch.core import se3
+    from lidarslam_tpu_torch.io import synthetic
+
+    offset = se3.pose_to_hmat(list(RIG_OFFSET_POSE))
+    world = synthetic.default_world(0)
+    sensor = synthetic.SensorModel(n_rings=16, n_azimuth=1800)
+    base = synthetic.weaving_street_trajectory()
+
+    def mounted(t):
+        return base(t) @ offset
+
+    acquisitions = []
+    for i in range(n):
+        t0 = i * sensor.sweep_duration
+        f0 = synthetic.render_sweep(world, sensor, base, t0, seed=i)
+        f1 = synthetic.render_sweep(world, sensor, mounted, t0 + RIG_DT_S, seed=100 + i)
+        f0["device_id"], f1["device_id"] = 0, 1
+        acquisitions.append([f0, f1])
+    return acquisitions, offset
+
+
 def sensor_measurements(pose_at, t_end: float, t_start: float = -0.1):
     """Wheel-odometer and accelerometer readings at SENSOR_RATE_HZ from a
     ground-truth trajectory over [t_start, t_end]: (times, odometer [m],
@@ -264,11 +338,18 @@ def phase_env():
 
 
 def phase_build():
+    from lidarslam_tpu_torch.io import native
     from lidarslam_tpu_torch.ops import cuda_knn
 
     t0 = time.perf_counter()
     lib = cuda_knn.build_kernel()
     print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"the native host ingest did not build or load: "
+                             f"{native.last_error()}")
+    print(f"[build] {Path(native._SO).name} (native host ingest, g++) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = lib.with_name(lib.name.replace(".so", ".ptxas.txt"))
     if ptxas.is_file():
         for line in ptxas.read_text().splitlines():
@@ -318,9 +399,11 @@ def _graph_ms(fn):
 
 def _kernel_split_us(fn, reps=10):
     """Device microseconds per call of each k-NN kernel over `reps` calls
-    of `fn` (torch.profiler)."""
+    of `fn` (torch.profiler, read by utils/profiling.py)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from lidarslam_tpu_torch.utils import profiling
 
     fn()
     torch.cuda.synchronize()
@@ -328,14 +411,9 @@ def _kernel_split_us(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split = dict.fromkeys(KNN_KERNELS, 0.0)
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", None)
-        t = evt.self_cuda_time_total if t is None else t
-        for name in KNN_KERNELS:
-            if name in evt.key:
-                split[name] += t / reps
-    return split
+    dur = profiling.op_totals(prof)[0]
+    return {name: 1000 * sum(ms for k, ms in dur.items() if name in k) / reps
+            for name in KNN_KERNELS}
 
 
 def kernel_test_map(frames, device, leaf: float = 0.20):
@@ -643,35 +721,79 @@ def _check_trajectory(tag, frames, results, ref, gate_gt=True, tol_m=REF_TOL_M):
 
 
 def _profile(fn, n_frames: int):
-    """torch.profiler over `fn` (which ends in a device sync): device busy
-    ms/frame, device kernels/frame, executions of each k-NN kernel, and
-    the k-NN kernels' device ms/frame (every device kernel named knn_*)."""
+    """torch.profiler over `fn` (which ends in a device sync): the
+    `_readings` of its device work. Device activity only: the host ops'
+    events would double the profiler's own time and no reading uses them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy_us, kernels, knn_us = 0.0, 0, 0.0
-    knn = dict.fromkeys(KNN_KERNELS, 0)
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(evt, "self_device_time_total", None)
-        t = evt.self_cuda_time_total if t is None else t
-        busy_us += t
-        if not evt.key.startswith(("Memcpy", "Memset")):
-            kernels += evt.count
-        if "knn_" in evt.key:
-            knn_us += t
-        for name in KNN_KERNELS:
-            if name in evt.key:
-                knn[name] += evt.count
-    if busy_us <= 0 or kernels == 0:
+    return _readings(prof, n_frames)
+
+
+def _readings(source, n_frames: int):
+    """From a torch.profiler profile or its Chrome trace (utils/profiling.py):
+    device busy ms/frame, device kernels/frame (copies and memsets
+    excluded), executions of each k-NN kernel, and the k-NN kernels' device
+    ms/frame (every device kernel named knn_*)."""
+    from lidarslam_tpu_torch.utils import profiling
+
+    _, cnt, cat = profiling.op_totals(source)
+    busy_ms = profiling.device_busy_ms(source)
+    kernels = sum(n for name, n in cnt.items()
+                  if profiling.category(name) not in ("memcpy", "memset"))
+    if busy_ms <= 0 or kernels == 0:
         raise AssertionError("torch.profiler saw no device time")
-    return {"busy_ms": busy_us / 1000.0 / n_frames, "kernels": kernels / n_frames,
-            "knn": knn, "knn_ms": knn_us / 1000.0 / n_frames}
+    return {"busy_ms": busy_ms / n_frames, "kernels": kernels / n_frames,
+            "knn": {k: sum(n for name, n in cnt.items() if k in name) for k in KNN_KERNELS},
+            "knn_ms": cat["knn"] / n_frames}
+
+
+def _stream_run_ms(slam, items, enqueue=None, worker=False):
+    """Enqueue `items` in order through `enqueue` (by default
+    `slam.add_frame_async`; a rig's acquisitions go through
+    `slam.add_frames_async`), each as its own index, time items TIMED
+    between two device syncs, and flush: (ms per item over TIMED, as PERF.md
+    section 2 defines it, and the flush's results). With `worker`, the
+    timed full windows are stacked, uploaded and replayed on one worker
+    thread while this one builds the next sweeps, as the JAX package's
+    window worker does; the port dispatches inline (ROADMAP Queue 3, D5)."""
+    import torch
+
+    enqueue = enqueue or slam.add_frame_async
+    pool = ThreadPoolExecutor(max_workers=1) if worker else None
+    futures = []
+
+    def on_worker():
+        buf, slam._window_buf = slam._window_buf, []
+        futures.append(pool.submit(slam._run_window, buf))
+
+    def settle():           # the worker's windows, then the device
+        while futures:
+            futures.pop(0).result()
+        if slam.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = t1 = 0.0
+    try:
+        for i, item in enumerate(items):
+            if i == TIMED.start:
+                settle()
+                if worker:
+                    slam._dispatch_window = on_worker
+                t0 = time.perf_counter()
+            _require(enqueue(item) == i, f"item {i} was not enqueued as {i}")
+            if i == TIMED.stop - 1:
+                settle()
+                t1 = time.perf_counter()
+                slam.__dict__.pop("_dispatch_window", None)
+    finally:
+        if pool is not None:
+            pool.shutdown()
+    return 1000 * (t1 - t0) / len(TIMED), slam.flush()
 
 
 def _check_knn_executions(tag, prof, n_frames):
@@ -768,16 +890,7 @@ def phase_stream(frames, card: str, sync: dict):
     slam = Slam(cfg, device="cuda")
     cuda_knn.LAUNCHES = 0
     t_all = time.perf_counter()
-    for i, f in enumerate(frames):
-        if i == TIMED.start:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        if slam.add_frame_async(f) != i:
-            raise AssertionError(f"frame {i} was not enqueued as frame {i}")
-        if i == TIMED.stop - 1:
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-    results = slam.flush()
+    ms_frame, results = _stream_run_ms(slam, frames)
     wall_all = time.perf_counter() - t_all
     calls = cuda_knn.LAUNCHES
     if slam._graph is None or slam._graph.graph is None:
@@ -788,7 +901,6 @@ def phase_stream(frames, card: str, sync: dict):
         raise AssertionError(f"[stream] {calls} k-NN wrapper calls for "
                              f"{slam._graph.warmup_steps} warm-up steps and 1 capture")
     worst_ref, worst_gt = _check_trajectory("stream", frames, results, ref)
-    ms_frame = 1000 * (t1 - t0) / len(TIMED)
     n_matches = [r["n_matches"] for r in results[1:]]
     ref_matches = [int(v) for v in ref["n_matches"][1:]]
     bad = [i for i, (a, b) in enumerate(zip(n_matches, ref_matches), 1)
@@ -854,7 +966,164 @@ def phase_stream(frames, card: str, sync: dict):
           f"sync {sync['busy_ms']:.2f} ms/frame; kernels/frame stream "
           f"{prof['kernels']:.1f} / sync {sync['kernels']:.1f}; k-NN device ms/frame "
           f"stream {prof['knn_ms']:.4f} / sync {sync['knn_ms']:.4f}", flush=True)
-    return {"ms_frame": ms_frame, "calls": calls, **prof}
+    flt = _float_stream(frames, card)
+    return {"ms_frame": ms_frame, "calls": calls, "float": flt, **prof}
+
+
+FLOAT_STREAM_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_bench_float_stream_ref.npz"
+
+
+@contextlib.contextmanager
+def numpy_ingest():
+    """The port's host ingest pinned to its numpy path: phases 4-7 hold the
+    port against JAX references made on the JAX package's numpy ingest, and
+    the native one rounds a few 4 mm coordinates differently (ROADMAP Queue
+    3, F5)."""
+    from lidarslam_tpu_torch.io import native
+
+    real = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = real
+
+
+def _replay_vs_eager(tag, g, record, step, cfg, map_cfgs, path_calls=None):
+    """The eager step of `step` from a copy of the graph's state on the
+    record's inputs under set_sync_debug_mode("error") (its k-NN calls'
+    inputs appended to `path_calls` when given), against one replay of the
+    graph `g` on `record`. Returns (m, deg, total matches)."""
+    import numpy as np
+    import torch
+
+    from lidarslam_tpu_torch.core import se3
+    from lidarslam_tpu_torch.ops import pipeline
+    from lidarslam_tpu_torch.ops.stream_graph import clone_tree
+
+    g.record.copy_(record)
+    inp, stamp, _ = g.wire.unpack(g.record)
+    inp = clone_tree(inp)
+    stamp = stamp.clone()
+    before = clone_tree(g.state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (_, packed_eager, _), calls = _record_knn_calls(
+            lambda: step(inp, before, stamp, g.az, cfg, map_cfgs, False))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if path_calls is not None:
+        path_calls.extend(calls)
+    g.graph.replay()
+    ue = pipeline.unpack_scalars(packed_eager.cpu().numpy()[:64])
+    ur = pipeline.unpack_scalars(g._outputs[0].cpu().numpy()[:64])
+    dt, dr = pose_errors(se3.pose_to_hmat(ur["pose"]), se3.pose_to_hmat(ue["pose"]))
+    _require(dt <= REPLAY_TOL_M and dr <= REPLAY_TOL_DEG and ue["total"] == ur["total"]
+             and np.array_equal(ue["counts"], ur["counts"]),
+             f"[{tag}] replay != eager step: {dt} m, {dr} deg, matches {ur['counts']} "
+             f"vs {ue['counts']}")
+    return dt, dr, ur["total"]
+
+
+def _float_stream(frames, card: str):
+    """The bench stream with compress_upload=False: each sweep's float planes
+    go up in a FloatRecord and replay in their own graph; held against
+    vlp16_bench_float_stream_ref.npz, with one replay against the eager
+    step from the same state."""
+    import dataclasses
+
+    import numpy as np
+
+    from lidarslam_tpu_torch import Slam
+    from lidarslam_tpu_torch.ops import pipeline, stream_graph
+    from lidarslam_tpu_torch.ops.frame import build_range_image
+
+    ref = np.load(FLOAT_STREAM_REF_PATH)
+    cfg = dataclasses.replace(bench_config(16, 1800), compress_upload=False)
+    slam = Slam(cfg, device="cuda")
+    ms_frame, results = _stream_run_ms(slam, frames)
+    g = slam._graph
+    _require(isinstance(g.wire, stream_graph.FloatRecord) and g.graph is not None,
+             "[float] the float stream never captured its FloatRecord graph")
+    worst_ref, _ = _check_trajectory("float", frames, results, ref)
+    n, want = [r["n_matches"] for r in results], ref["n_matches"]
+    bad = [i for i in range(1, len(n)) if abs(n[i] - want[i]) > 0.01 * want[i]]
+    _require(not bad, f"[float] n_matches off the JAX reference by > 1% at {bad}")
+
+    slam = Slam(cfg, device="cuda")
+    for f in frames[:PROFILED.start]:
+        slam.add_frame_async(f)
+    g = slam._graph
+    f = frames[PROFILED.start]
+    host = build_range_image(f["xyz"], f["intensity"], f["laser_id"], f["time"],
+                             cfg.extractor.n_rings, cfg.extractor.max_ring_points,
+                             device=False)
+    record = g.wire.pack([host], [np.float32(f["stamp"])]).to("cuda")[0]
+    dt, dr, total = _replay_vs_eager("float", g, record, pipeline.process_frame_stream, cfg,
+                                     slam._map_cfgs_tuple)
+    print(f"[float] compress_upload=False stream: {len(frames)} frames, 0 failed, records "
+          f"of {g.wire.nbytes} B a sweep, {ms_frame:.2f} ms/frame over "
+          f"frames {TIMED.start}-{TIMED.stop - 1}; max divergence from the JAX float stream "
+          f"{worst_ref[0]:.3e} m / {worst_ref[1]:.3e} deg; n_matches within 1%; eager step "
+          f"under set_sync_debug_mode('error'): no sync; replay vs eager {dt:.3e} m / "
+          f"{dr:.3e} deg, matches {total} ({card})", flush=True)
+    return {"ms_frame": ms_frame, "max_div_m": worst_ref[0]}
+
+
+def phase_ingest(frames, card: str, stream: dict):
+    """Phase 5 on the native host ingest: the median per-sweep host ingest of
+    the 30 sweeps (numpy and native window planes, the native per-sweep
+    byte wire), then the bench stream on native ingest with its timed
+    windows dispatched inline and on a worker thread (`_stream_run_ms`), in
+    turns (inline, worker, worker, inline, inline, worker), each held to
+    the JAX stream reference; its idle share from phase 5's device busy
+    time."""
+    import numpy as np
+
+    from lidarslam_tpu_torch import Slam
+    from lidarslam_tpu_torch.io import native
+    from lidarslam_tpu_torch.ops.frame import build_range_image
+
+    _require(native.available(), f"[ingest] no native ingest: {native.last_error()}")
+    cfg = bench_config(16, 1800)
+    R, C = cfg.extractor.n_rings, cfg.extractor.max_ring_points
+
+    def ingest_ms(device):
+        times = []
+        for f in frames:
+            t0 = time.perf_counter()
+            build_range_image(f["xyz"], f["intensity"], f["laser_id"], f["time"], R, C,
+                              packed=True, device=device)
+            times.append(time.perf_counter() - t0)
+        return 1000 * statistics.median(times)
+
+    with numpy_ingest():
+        numpy_ms = ingest_ms(False)
+    ingest = {"numpy": numpy_ms, "native packed2": ingest_ms(False),
+              "native packed": ingest_ms(None)}
+    print(f"[ingest] host ingest per VLP-16 sweep, median of {len(frames)}: numpy window "
+          f"planes {ingest['numpy']:.3f} ms, native packed2 (window planes) "
+          f"{ingest['native packed2']:.3f} ms, native packed (per-sweep byte wire) "
+          f"{ingest['native packed']:.3f} ms ({card})", flush=True)
+
+    ref = np.load(STREAM_REF_PATH)
+    runs = {False: [], True: []}
+    worst = 0.0
+    for worker in (False, True, True, False, False, True):
+        ms, results = _stream_run_ms(Slam(cfg, device="cuda"), frames, worker=worker)
+        worst = max(worst, _check_trajectory("native stream", frames, results, ref)[0][0])
+        runs[worker].append(ms)
+    busy = stream["busy_ms"]
+    idle = {k: [1 - busy / ms for ms in v] for k, v in runs.items()}
+    print(f"[ingest] bench stream on native ingest, ms/frame over frames {TIMED.start}-"
+          f"{TIMED.stop - 1} (idle share at phase 5's {busy:.2f} ms/frame of device busy): "
+          f"inline {', '.join(f'{m:.2f} ({100 * i:.1f}%)' for m, i in zip(runs[False], idle[False]))}; "
+          f"worker {', '.join(f'{m:.2f} ({100 * i:.1f}%)' for m, i in zip(runs[True], idle[True]))}; "
+          f"numpy ingest inline (phase 5) {stream['ms_frame']:.2f} "
+          f"({100 * (1 - busy / stream['ms_frame']):.1f}%); max divergence from the JAX "
+          f"stream {worst:.3e} m ({card})", flush=True)
+    return {"ingest_ms": ingest, "inline_ms": runs[False], "worker_ms": runs[True]}
 
 
 # the k-NN calls of one step of full_config, in order: 4 ego rounds of
@@ -1035,15 +1304,7 @@ def phase_full(card: str, frames):
     # ---- add_frame_async + flush
     slam = Slam(cfg, device="cuda")
     cuda_knn.LAUNCHES = 0
-    for i, f in enumerate(frames):
-        if i == TIMED.start:
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-        slam.add_frame_async(f)
-        if i == TIMED.stop - 1:
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-    results = slam.flush()
+    stream_ms, results = _stream_run_ms(slam, frames)
     calls = cuda_knn.LAUNCHES
     if slam._graph is None or slam._graph.graph is None:
         raise AssertionError("[full] the stream never captured its CUDA graph")
@@ -1053,7 +1314,6 @@ def phase_full(card: str, frames):
     worst_sref, worst_sgt = _check_trajectory("full stream", frames, results, sref,
                                               gate_gt=False)
     d_sov = _check_confidence("full stream", results, sref)
-    stream_ms = 1000 * (t2 - t1) / len(TIMED)
     print(f"[full] stream: {len(frames)} frames, 0 failed, {calls} Python k-NN calls "
           f"({slam._graph.warmup_steps} warm-up steps and 1 capture, {len(FULL_CALLS)} "
           f"each); {stream_ms:.2f} ms/frame over frames {TIMED.start}-{TIMED.stop - 1}",
@@ -1169,18 +1429,15 @@ EXT_CALLS = (FULL_CALLS[:8] + (("loc edges", 10), ("loc planes", 5), ("loc blobs
              + (("overlap, edge map", 1), ("overlap, plane map", 1), ("overlap, blob map", 1)))
 
 
-def _ext_run(cfg, frames, sensors, stream: bool, device: str = "cuda"):
+def _ext_run(cfg, frames, sensors, stream: bool, device: str = "cuda", worker=False):
     """One ext_config run on `device` (`sensors` fed first; none when None):
     (results, per-type match counts per frame, the Slam, ms/frame as PERF.md
     defines it: the median over the localized frames of add_frame ending in
-    a device sync, or the stream's frames TIMED between two device syncs)."""
+    a device sync, or the stream's frames TIMED between two device syncs,
+    their windows on a worker thread with `worker`)."""
     import torch
 
     from lidarslam_tpu_torch import Slam
-
-    def sync():
-        if device == "cuda":
-            torch.cuda.synchronize()
 
     slam = Slam(cfg, device=device)
     if sensors is not None:
@@ -1190,7 +1447,8 @@ def _ext_run(cfg, frames, sensors, stream: bool, device: str = "cuda"):
         for f in frames:
             t0 = time.perf_counter()
             results.append(slam.add_frame(f))
-            sync()
+            if device == "cuda":
+                torch.cuda.synchronize()
             wall.append(time.perf_counter() - t0)
             counts.append(slam.match_counts.copy())
         return results, counts, slam, 1000 * statistics.median(wall[1:] or wall)
@@ -1201,16 +1459,8 @@ def _ext_run(cfg, frames, sensors, stream: bool, device: str = "cuda"):
         counts.append(slam.match_counts.copy())
         real(stamp)
     slam._log_state = log_state
-    t0 = t1 = 0.0
-    for i, f in enumerate(frames):
-        if i == TIMED.start:
-            sync()
-            t0 = time.perf_counter()
-        slam.add_frame_async(f)
-        if i == TIMED.stop - 1:
-            sync()
-            t1 = time.perf_counter()
-    return slam.flush(), counts, slam, 1000 * (t1 - t0) / len(TIMED)
+    ms, results = _stream_run_ms(slam, frames, worker=worker)
+    return results, counts, slam, ms
 
 
 # Phase 7's limits on a run against its JAX reference (ext_readings). With
@@ -1563,6 +1813,207 @@ def phase_ext(card: str, frames):
             "max_abs_err": max(s_["max_abs_err"] for s_ in shapes)}
 
 
+RIG_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_rig_ref.npz"
+RIG_STREAM_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_rig_stream_ref.npz"
+# the k-NN calls of one rig acquisition: full_config's without the overlap
+# (a merged keypoint set has no range image to sample)
+RIG_CALLS = FULL_CALLS[:10]
+RIG_PROFILED = 4            # acquisitions in each of phase 8's profiled windows
+
+
+def _check_per_type(tag, counts, ref):
+    """Per-type match counts within 1% of JAX's on every frame."""
+    import numpy as np
+
+    got, want = np.asarray(counts), ref["match_counts"]
+    bad = np.argwhere(np.abs(got - want) > 0.01 * want)
+    _require(got.shape == want.shape and not len(bad),
+             f"[{tag}] per-type n_matches off JAX by > 1% at (frame, type) {bad.tolist()}")
+
+
+def phase_rig(card: str):
+    """The multi-LiDAR rig at full width: rig_config() on 30 acquisitions of
+    render_rig (two VLP-16s, device 1 at its offset with its own extractor,
+    0.05 s later), through add_frames and add_frames_async + flush, each held
+    against its JAX reference (vlp16_rig_ref.npz, vlp16_rig_stream_ref.npz);
+    the rig graph's step sync-free and its replay equal to the eager step;
+    a profiled window of acquisitions taken with Slam.start_profiling /
+    stop_profiling and read back from its trace file; each k-NN call shape
+    of the step against the plain version on its own inputs."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from lidarslam_tpu_torch import Slam
+    from lidarslam_tpu_torch.ops import cuda_knn, pipeline
+    from lidarslam_tpu_torch.utils import profiling
+
+    cfg = rig_config()
+    t0 = time.perf_counter()
+    acq, offset = render_rig(N_FRAMES)
+    base = [a[0] for a in acq]
+    print(f"[rig] rendered {len(acq)} acquisitions of two VLP-16s in "
+          f"{time.perf_counter() - t0:.1f} s; device 1 at {RIG_OFFSET_POSE}, "
+          f"{RIG_DT_S} s after device 0", flush=True)
+    ref, sref = np.load(RIG_REF_PATH), np.load(RIG_STREAM_REF_PATH)
+
+    def start():
+        slam = Slam(cfg, device="cuda")
+        slam.set_base_to_lidar_offset(1, offset)
+        return slam
+
+    # ---- add_frames
+    slam, results, counts, wall = start(), [], [], []
+
+    def run_sync():
+        for a in acq:
+            t1 = time.perf_counter()
+            results.append(slam.add_frames(a))
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t1)
+            counts.append(slam.match_counts.copy())
+
+    cuda_knn.LAUNCHES = 0
+    _, shapes_run = _record_knn_calls(run_sync, keep_inputs=False)
+    sync_launches = cuda_knn.LAUNCHES
+    _require(sync_launches == len(shapes_run) > 0,
+             f"[rig] {sync_launches} counted k-NN launches, {len(shapes_run)} seen")
+    worst_ref, _ = _check_trajectory("rig sync", base, results, ref, gate_gt=False)
+    _check_confidence("rig sync", results, ref)
+    _check_per_type("rig sync", counts, ref)
+    sync_ms = 1000 * statistics.median(wall[1:])
+    sync_log = slam.get_log_memory_usage()
+    merged = slam._device_keypoints
+    print(f"[rig] sync: {len(acq)} acquisitions, 0 failed, {sync_launches} k-NN launches "
+          f"{dict(sorted(collections.Counter(shapes_run).items()))}; median {sync_ms:.2f} "
+          f"ms/acquisition; merged keypoints at frame {len(acq)}: "
+          f"{[int(k.count) for k in merged]} of {[k.xyz.shape[0] for k in merged]}",
+          flush=True)
+    print(f"[rig] sync: max divergence from JAX {worst_ref[0]:.3e} m / {worst_ref[1]:.3e} "
+          f"deg; n_matches (total and per type) within 1% on every frame, min "
+          f"{min(r['n_matches'] for r in results[1:])} (JAX {int(ref['n_matches'][1:].min())})"
+          f"; motion-limit flags equal", flush=True)
+    slam = start()
+    for a in acq[:PROFILED.start]:
+        slam.add_frames(a)
+    profiled = range(PROFILED.start, PROFILED.start + RIG_PROFILED)
+    sync_prof = _profile(lambda: [slam.add_frames(acq[i]) for i in profiled], RIG_PROFILED)
+    print(f"[rig] sync profiled acquisitions {profiled.start}-{profiled.stop - 1}: device "
+          f"busy {sync_prof['busy_ms']:.2f} ms/acquisition, {sync_prof['kernels']:.1f} "
+          f"device kernels/acquisition; [time] {time.perf_counter() - t0:.1f} s into the "
+          "phase", flush=True)
+
+    # ---- add_frames_async + flush
+    slam, counts = start(), []
+    real = slam._log_state
+
+    def log_state(stamp):       # flush logs each frame after its match counts
+        counts.append(slam.match_counts.copy())
+        real(stamp)
+    slam._log_state = log_state
+    cuda_knn.LAUNCHES = 0
+    stream_ms, results = _stream_run_ms(slam, acq, slam.add_frames_async)
+    calls = cuda_knn.LAUNCHES
+    rig = slam._rig_graph
+    _require(rig is not None and rig.graph is not None and rig.state is slam._graph.state,
+             "[rig] the stream never captured the rig graph on the segment's state")
+    _require(calls == len(RIG_CALLS) * (rig.warmup_steps + 1),
+             f"[rig] {calls} k-NN wrapper calls in the stream for {rig.warmup_steps} "
+             "warm-up steps and 1 capture")
+    worst_sref, _ = _check_trajectory("rig stream", base, results, sref, gate_gt=False)
+    _check_confidence("rig stream", results, sref)
+    _check_per_type("rig stream", counts, sref)
+    stream_log = slam.get_log_memory_usage()
+    for tag, log in (("sync", sync_log), ("stream", stream_log)):
+        _require(log["n_frames"] == len(acq) and log["device"] > 0,
+                 f"[rig] the {tag} keypoint log holds {log}")
+    print(f"[rig] keypoint log (LoggingStorage.DEVICE, logging_timeout -1): "
+          f"{sync_log['device'] // len(acq)} B/acquisition on the sync path, "
+          f"{stream_log['device'] // len(acq)} B/acquisition in the stream", flush=True)
+    print(f"[rig] stream: {len(acq)} acquisitions, 0 failed, {calls} Python k-NN calls "
+          f"({rig.warmup_steps} warm-up steps and 1 capture, "
+          f"{len(RIG_CALLS)} each); {stream_ms:.2f} ms/acquisition over {TIMED.start}-"
+          f"{TIMED.stop - 1}; max divergence from the JAX stream {worst_sref[0]:.3e} m / "
+          f"{worst_sref[1]:.3e} deg; n_matches within 1% (total and per type)", flush=True)
+
+    # acquisitions 0-16 through the API, 17 by hand: extraction and merge
+    # eagerly, then the step eagerly under sync-debug "error" against one
+    # replay of the rig graph from the same state
+    slam = start()
+    for a in acq[:PROFILED.start]:
+        slam.add_frames_async(a)
+    rig = slam._rig_graph
+    a = acq[PROFILED.start]
+    kps = slam._extract_merge(a, float(a[0]["stamp"]))
+    rig.wire.write(rig.record, kps, float(a[0]["stamp"]))
+    record = rig.record.clone()
+    path_calls = []
+    dt, dr, total = _replay_vs_eager("rig", rig, record, pipeline.process_keypoints_stream,
+                                     cfg, slam._map_cfgs_tuple, path_calls)
+    _require([c[3] for c in path_calls] == [k for _, k in RIG_CALLS],
+             f"[rig] the step's k-NN calls {[(c[3], c[1].shape[0]) for c in path_calls]} "
+             "are not RIG_CALLS")
+    print(f"[rig] acquisition {PROFILED.start}'s step under set_sync_debug_mode('error'): no "
+          f"sync; replay vs eager {dt:.3e} m / {dr:.3e} deg, matches {total}", flush=True)
+    # a whole add_frames_async (upload, extraction, merge, record, replay):
+    # host syncs counted, not required to be none
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            slam.add_frames_async(acq[PROFILED.start + 1])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message).lower()]
+    print(f"[rig] one whole add_frames_async: {len(syncs)} host syncs "
+          f"{syncs[:2]}", flush=True)
+
+    # a window of acquisitions through Slam.start_profiling / stop_profiling
+    window = range(PROFILED.start + 2, PROFILED.start + 2 + RIG_PROFILED)
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        slam.start_profiling(d)
+        for i in window:
+            slam.add_frames_async(acq[i])
+        path = slam.stop_profiling()
+        _require(profiling.find_trace(d) == path, "[rig] stop_profiling wrote no trace")
+        prof = _readings(path, RIG_PROFILED)
+    slam.flush()
+    _require(all(n == len(RIG_CALLS) * RIG_PROFILED for n in prof["knn"].values()),
+             f"[rig] k-NN executions {prof['knn']} in {RIG_PROFILED} acquisitions (expected "
+             f"{len(RIG_CALLS)} per acquisition each)")
+    print(f"[rig] profiled {RIG_PROFILED} acquisitions ({window.start}-{window.stop - 1}) through "
+          f"Slam.start_profiling / stop_profiling, read from the trace file: k-NN "
+          f"executions {prof['knn']} ({len(RIG_CALLS)} per acquisition each); device busy "
+          f"{prof['busy_ms']:.2f} ms/acquisition, {prof['kernels']:.1f} device kernels/"
+          f"acquisition (a replay per device's extraction, the merge, a replay of the "
+          f"step); "
+          f"k-NN {prof['knn_ms']:.4f} ms/acquisition; [time] {time.perf_counter() - t0:.1f} "
+          "s into the phase", flush=True)
+    print(f"[rig-stream-vs-sync] {card}: stream {stream_ms:.2f} ms/acquisition (idle share "
+          f"{100 * (1 - prof['busy_ms'] / stream_ms):.1f}%), sync {sync_ms:.2f} "
+          f"ms/acquisition; device busy stream {prof['busy_ms']:.2f} / sync "
+          f"{sync_prof['busy_ms']:.2f} ms/acquisition; kernels/acquisition stream "
+          f"{prof['kernels']:.1f} / sync {sync_prof['kernels']:.1f}", flush=True)
+
+    shapes, seen = [], set()
+    labels = [label for label, _ in RIG_CALLS]
+    for (label, _), (index, q, q_valid, k, r2) in zip(RIG_CALLS, path_calls):
+        if label in seen:
+            continue
+        seen.add(label)
+        shapes.append(_path_call_case(label, labels.count(label), index, q, q_valid, k, r2,
+                                      card, tag="rig"))
+    return {"sync_launches": sync_launches, "stream_calls": calls,
+            "stream_executions": prof["knn"], "stream_knn_ms": prof["knn_ms"],
+            "sync_knn_ms": sync_prof["knn_ms"], "shapes": shapes,
+            "max_abs_err": max(s_["max_abs_err"] for s_ in shapes)}
+
+
 def main() -> int:
     if not (ROOT / "lidarslam_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: lidarslam_tpu_torch/ not found beside this script; "
@@ -1593,18 +2044,26 @@ def main() -> int:
           flush=True)
     rec = phase_kernel(frames, card)
     done(3)
-    sync = phase_slice(frames)
-    done(4)
-    stream = phase_stream(frames, card, sync)
+    print("[ingest] phases 4-7 pin the port's host ingest to numpy, on which their JAX "
+          "references were made (ROADMAP Queue 3, F5); phase 5's native runs and phase 8 "
+          "take the native ingest", flush=True)
+    with numpy_ingest():
+        sync = phase_slice(frames)
+        done(4)
+        stream = phase_stream(frames, card, sync)
+    ingest = phase_ingest(frames, card, stream)
     done(5)
     t0 = time.perf_counter()
     distorted = render_frames(N_FRAMES, motion_distortion=True)
     print(f"[full] rendered {len(distorted)} VLP-16 sweeps with motion distortion in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    full = phase_full(card, distorted)
-    done(6)
-    ext = phase_ext(card, distorted)
-    done(7)
+    with numpy_ingest():
+        full = phase_full(card, distorted)
+        done(6)
+        ext = phase_ext(card, distorted)
+        done(7)
+    rig = phase_rig(card)
+    done(8)
     pf = ext["per_frame"]
     # what sets the per-frame bound: the side holding most of it
     by_ops = sum(s["bound_ms"] * s["calls_per_frame"] for s in ext["shapes"]
@@ -1618,18 +2077,22 @@ def main() -> int:
         "name": "knn", "route": "cuda", "source": "lidarslam_tpu_torch/csrc/knn.cu",
         "replaces": "lidarslam_tpu/ops/pallas_knn.py:121",
         "launches": ext["sync_launches"],
-        "max_abs_err": max(rec["max_abs_err"], full["max_abs_err"], ext["max_abs_err"]),
+        "max_abs_err": max(rec["max_abs_err"], full["max_abs_err"], ext["max_abs_err"],
+                           rig["max_abs_err"]),
         "ms": pf["ms"], "plain_ms": pf["plain_ms"], "bound_ms": pf["bound_ms"],
         "bound_by": bound_by, "library_ms": pf["library_ms"],
         "per": f"one streamed frame of ext_config ({len(EXT_CALLS)} calls)",
         "launch_ms": pf["launch_ms"], "device_ms": pf["device_ms"],
         "shapes": ext["shapes"], "full_shapes": full["shapes"],
+        "rig_shapes": rig["shapes"],
         "launches_by_path": {"bench sync": sync["launches"],
                              "bench stream (Python calls)": stream["calls"],
                              "full sync": full["sync_launches"],
                              "full stream (Python calls)": full["stream_calls"],
                              "ext sync": ext["sync_launches"],
-                             "ext stream (Python calls)": ext["stream_calls"]},
+                             "ext stream (Python calls)": ext["stream_calls"],
+                             "rig sync": rig["sync_launches"],
+                             "rig stream (Python calls)": rig["stream_calls"]},
         "full_sync_launches_by_shape": full["sync_by_shape"],
         "ext_sync_launches_by_shape": ext["sync_by_shape"],
         "bench_full_map": {"ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -1639,12 +2102,18 @@ def main() -> int:
                            "edges_unpruned": rec["edges_unpruned"]},
         "stream_knn_device_ms_per_frame": {"bench": stream["knn_ms"],
                                            "full": full["stream_knn_ms"],
-                                           "ext": ext["stream_knn_ms"]},
+                                           "ext": ext["stream_knn_ms"],
+                                           "rig": rig["stream_knn_ms"]},
         "sync_knn_device_ms_per_frame": {"bench": sync["knn_ms"],
                                          "full": full["sync_knn_ms"],
-                                         "ext": ext["sync_knn_ms"]},
+                                         "ext": ext["sync_knn_ms"],
+                                         "rig": rig["sync_knn_ms"]},
         "stream_executions": {"bench": stream["knn"], "full": full["stream_executions"],
-                              "ext": ext["stream_executions"]},
+                              "ext": ext["stream_executions"],
+                              "rig": rig["stream_executions"]},
+        "host_ingest_ms_per_sweep": ingest["ingest_ms"],
+        "bench_stream_native_ms": {"inline": ingest["inline_ms"],
+                                   "worker": ingest["worker_ms"]},
         "stream_frames_profiled": WINDOW}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ is a CUDA kernel written by hand (`csrc/knn.cu`, built at first use).
 This package never imports jax.
 
     from lidarslam_tpu_torch import Slam, SlamConfig
-    slam = Slam(SlamConfig(), device="cuda")
+    slam = Slam(SlamConfig())               # on the GPU; device="cpu" for the CPU
     result = slam.add_frame(sweep)          # or: add_frame_async(...), flush()
+    result = slam.add_frames(acquisition)   # a multi-LiDAR rig, one frame per device
 """
 
 from lidarslam_tpu_torch.config import SlamConfig

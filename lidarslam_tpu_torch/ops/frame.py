@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from lidarslam_tpu_torch.io import native
+
 XYZ_QUANT_SCALE = 0.004  # [m] upload quantization step (~sensor noise / 5)
 
 
@@ -176,6 +178,17 @@ class ByteRangeImage:
             valid=valid)
 
 
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device` (None: kept on the host). To a GPU it goes
+    from pinned memory without waiting for the work queued before it."""
+    if device is None:
+        return t
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def pack_range_image_bytes(q, inten8, t16, valid8, device=None) -> ByteRangeImage:
     """One wire buffer from the quantized host planes. With `device` the
     buffer is uploaded (one copy); otherwise it stays a CPU tensor."""
@@ -184,10 +197,7 @@ def pack_range_image_bytes(q, inten8, t16, valid8, device=None) -> ByteRangeImag
         np.ascontiguousarray(inten8, np.uint8).ravel(),
         np.ascontiguousarray(t16, np.float16).view(np.uint8).ravel(),
         np.ascontiguousarray(valid8, np.uint8).ravel()])
-    t = torch.from_numpy(buf)
-    if device is not None:
-        t = t.to(device)
-    return ByteRangeImage(t, q.shape[:2])
+    return ByteRangeImage(upload(torch.from_numpy(buf), device), q.shape[:2])
 
 
 def ensure_range_image(ri) -> RangeImage:
@@ -301,6 +311,41 @@ class KeypointsView:
     def count(self):
         return np.int32(self._h()[-1])
 
+    @property
+    def device_nbytes(self):
+        # a row view accounts only its own share of the stacked buffer
+        return int(self._buf.shape[-1]) * 4
+
+
+def transform_keypoints(kp: Keypoints, pose6: torch.Tensor, time_offset=0.0) -> Keypoints:
+    """Rigidly transform a keypoint set (LIDAR->BASE calibration) and shift
+    its point times (AggregateFrames semantics, Slam.cxx:1512-1578). The
+    rotation is three float32 multiply-adds per coordinate, never a matmul,
+    so no TF32 path can round it."""
+    from lidarslam_tpu_torch.core import se3
+
+    R, t = se3.jpose_to_rt(pose6.to(torch.float32))
+    x = kp.xyz
+    xyz = x[:, 0:1] * R[:, 0] + x[:, 1:2] * R[:, 1] + x[:, 2:3] * R[:, 2] + t
+    return kp._replace(xyz=xyz, time=kp.time + time_offset)
+
+
+def merge_keypoints(sets, capacity: int) -> Keypoints:
+    """Concatenate keypoint sets from several devices into one
+    fixed-capacity set, valid slots first in their concatenation order (a
+    stable sort on ~valid, as the JAX package's `lax.sort`), truncated to
+    `capacity`."""
+    xyz = torch.cat([s.xyz for s in sets])
+    valid = torch.cat([s.valid for s in sets])
+    _, order = torch.sort((~valid).to(torch.int32), stable=True)
+    crow = order[:capacity]
+    count = torch.clamp(valid.sum(), max=capacity).to(torch.int32)
+    slot_valid = torch.arange(capacity, device=xyz.device) < count
+    return Keypoints(xyz=xyz[crow], intensity=torch.cat([s.intensity for s in sets])[crow],
+                     time=torch.cat([s.time for s in sets])[crow],
+                     ring=torch.cat([s.ring for s in sets])[crow], valid=slot_valid,
+                     count=count)
+
 
 def build_range_image(xyz, intensity, laser_id, time, n_rings: int,
                       max_ring_points: int, packed: bool = False, device=None):
@@ -310,10 +355,35 @@ def build_range_image(xyz, intensity, laser_id, time, n_rings: int,
     points beyond `max_ring_points` per ring and rings >= n_rings are
     dropped. `packed=True` returns the quantized `ByteRangeImage` wire,
     otherwise a float32 `RangeImage`; tensors go to `device` when given.
-    `packed=True, device=False` returns a host `PackedRangeImage` of numpy
-    planes (the window path: several sweeps stack into one upload)."""
+    `device=False` keeps numpy planes on the host (the window path: several
+    sweeps stack into one upload): a `PackedRangeImage` when packed, a
+    `RangeImage` of numpy arrays otherwise.
+
+    The scatter runs in C++ (`io/native.py`) where its library loads, as in
+    the JAX package; the numpy path below is the same scatter. The two
+    quantize differently in a few coordinates (C++ multiplies by 1/0.004
+    where numpy divides by 0.004): 7 of a VLP-16 sweep's, one step each."""
     xyz = np.asarray(xyz, np.float32)
     laser_id = np.asarray(laser_id, np.int64)
+
+    def up(a):
+        return a if device is False else upload(torch.from_numpy(a), device)
+
+    if native.available():
+        if packed and device is False:
+            out = native.build_range_image_packed2_native(
+                xyz, intensity, laser_id, time, n_rings, max_ring_points, XYZ_QUANT_SCALE)
+            q, inten8, t_q, t_min, t_scale, counts = out
+            return PackedRangeImage(xyz_q=q, intensity=inten8, t_q=t_q, t_min=t_min,
+                                    t_scale=t_scale, counts=counts)
+        if packed:
+            q, inten8, t16, valid8 = native.build_range_image_packed_native(
+                xyz, intensity, laser_id, time, n_rings, max_ring_points, XYZ_QUANT_SCALE)
+            return pack_range_image_bytes(q, inten8, t16, valid8, device=device)
+        oxyz, ointen, otime, ovalid = native.build_range_image_native(
+            xyz, intensity, laser_id, time, n_rings, max_ring_points)
+        return RangeImage(xyz=up(oxyz), intensity=up(ointen), time=up(otime),
+                          valid=up(ovalid.astype(bool)))
     keep = (laser_id >= 0) & (laser_id < n_rings)
 
     lid_kept = laser_id[keep]
@@ -347,9 +417,6 @@ def build_range_image(xyz, intensity, laser_id, time, n_rings: int,
         return pack_range_image_bytes(q, inten8, img_time.astype(np.float16),
                                       img_valid.astype(np.uint8), device=device)
 
-    def up(a):
-        t = torch.from_numpy(a)
-        return t if device is None else t.to(device)
     return RangeImage(xyz=up(img_xyz), intensity=up(img_int),
                       time=up(img_time), valid=up(img_valid))
 

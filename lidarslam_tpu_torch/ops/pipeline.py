@@ -1,5 +1,5 @@
 """The per-sweep step and the streaming step (PyTorch port of
-`lidarslam_tpu/ops/pipeline.py`, single-LiDAR subset).
+`lidarslam_tpu/ops/pipeline.py`).
 
 `process_frame` runs keypoint extraction, the optional scan-to-scan
 ego-motion ICP, scan-to-map localization ICP (with ONCE / REFINED
@@ -28,8 +28,9 @@ Every single-LiDAR option runs on both forms: blobs with the blob map, the
 five leaf-sampling modes, map decay (`clear_old_points`, before the submap
 view, so a decaying type rebuilds its submap every frame and keeps no
 `SubmapCache`) and the sensor residual blocks (`FrameInputs.extras`, added
-to the localization LM). The multi-LiDAR entry points and the multi-chip
-branches are not ported yet.
+to the localization LM). A multi-LiDAR acquisition enters as merged
+keypoints (`process_keypoints`, `process_keypoints_stream`), with no range
+image and so no overlap. The multi-chip branches are not ported.
 """
 
 from __future__ import annotations
@@ -450,6 +451,15 @@ def process_frame_stream(ri, state: StreamState, stamp, az_res, cfg: SlamConfig,
     ext = extractor.extract_keypoints(ri, az_res, cfg.extractor)
     return _stream_step((ext.edges, ext.planes, ext.blobs), ri, state, stamp, az_res, cfg,
                         map_cfgs, first_frame, extras)
+
+
+def process_keypoints_stream(kps: tuple, state: StreamState, stamp, az_res, cfg: SlamConfig,
+                             map_cfgs: tuple, first_frame: bool, extras=()):
+    """The streaming step from pre-extracted keypoints (a multi-LiDAR
+    acquisition's merged sets, `Slam.add_frames_async`): `_stream_step`
+    with no range image, so no overlap. Returns what `process_frame_stream`
+    returns."""
+    return _stream_step(kps, None, state, stamp, az_res, cfg, map_cfgs, first_frame, extras)
 
 
 def _stream_step(kps, ri, state: StreamState, stamp, az_res, cfg: SlamConfig, map_cfgs,

@@ -8,13 +8,22 @@ reads nothing on the host, so one steady-state step can be captured as a
 of a frame then launch as one graph instead of one Python call each.
 
 - Static buffers: the `StreamState` tensors, one input record of bytes per
-  sweep (`WireRecord`: the flat wire at a fixed capacity P plus the stamp
-  and the sensor residual blocks, so the graph's shapes never change) and
-  the azimuthal resolution. The graph holds the blocks of the kinds it was
-  built with (`blocks`); a sweep without a measurement carries its block
-  with `valid` off, which adds exactly nothing to the solve. The
+  sweep and the azimuthal resolution. A record has a fixed layout, so the
+  graph's shapes never change: `WireRecord` (the flat wire at a fixed
+  capacity P), `FloatRecord` (the float planes of `compress_upload=False`)
+  or `KeypointRecord` (a multi-LiDAR acquisition's merged keypoints at
+  their capacities, stepped by `process_keypoints_stream`), each with the
+  stamp and the sensor residual blocks. One graph steps one record kind; a
+  rig's graph shares the sweep graph's state buffers (`share`), so the two
+  kinds interleave in one segment. The graph holds the blocks of the kinds
+  it was built with (`blocks`); a sweep without a measurement carries its
+  block with `valid` off, which adds exactly nothing to the solve. The
   step writes the new state into the state buffers in place; a new segment
   `seed`s them with `copy_`, never by rebinding.
+- A rig's per-device extraction and calibration transform is a graph of
+  its own per device (`ExtractGraph`, input a FloatRecord of the device's
+  sweep), so an acquisition launches two extraction replays, the merge,
+  and one replay of the step.
 - Warm-up: the first `WARMUP_STEPS` steady-state steps are real sweeps of
   the stream, run eagerly on a side stream through the same functions.
   Then one step is captured (capture runs nothing, so the state does not
@@ -37,8 +46,9 @@ import numpy as np
 import torch
 
 from lidarslam_tpu_torch.config import SlamConfig
-from lidarslam_tpu_torch.ops import pipeline
-from lidarslam_tpu_torch.ops.frame import FlatRangeImage
+from lidarslam_tpu_torch.ops import extractor, pipeline
+from lidarslam_tpu_torch.ops.frame import (FlatRangeImage, Keypoints, RangeImage,
+                                           transform_keypoints)
 from lidarslam_tpu_torch.sensors.constraints import (GravityResidual, OdomResidual,
                                                      inactive_gravity, inactive_odom)
 
@@ -47,6 +57,29 @@ WARMUP_STEPS = 2
 BLOCK_KINDS = (OdomResidual, GravityResidual)
 _INACTIVE = (inactive_odom(), inactive_gravity())
 _BLOCK_LEN = 16   # float32 slots of the record's block area: 6 odometry + 8 gravity
+
+
+def _block_values(extras) -> np.ndarray:
+    """The record's block area (_BLOCK_LEN float32) of one sweep's host
+    residuals: a kind missing is written inactive."""
+    blocks = [next((e for e in extras if isinstance(e, kind)), inactive)
+              for kind, inactive in zip(BLOCK_KINDS, _INACTIVE)]
+    vals = np.zeros(_BLOCK_LEN, np.float32)
+    flat = np.concatenate([np.asarray(v, np.float32).reshape(-1) for b in blocks for v in b])
+    vals[:len(flat)] = flat
+    return vals
+
+
+def _unpack_blocks(b: torch.Tensor):
+    """(OdomResidual, GravityResidual) as views of a block area."""
+    odom = OdomResidual(prev_pos=b[0:3], distance=b[3], weight=b[4], valid=b[5] > 0.5)
+    grav = GravityResidual(g_ref=b[6:9], g_cur=b[9:12], weight=b[12], valid=b[13] > 0.5)
+    return odom, grav
+
+
+def _pinned(n: int, nbytes: int) -> torch.Tensor:
+    """(n, nbytes) zero uint8 host rows, pinned where there is a GPU."""
+    return torch.zeros((n, nbytes), dtype=torch.uint8, pin_memory=torch.cuda.is_available())
 
 
 class WireRecord:
@@ -74,10 +107,9 @@ class WireRecord:
         P), their stamps and their sensor residual blocks (per sweep a
         sequence of host residuals; a kind missing is written inactive), in
         pinned host memory where there is a GPU."""
-        out = torch.zeros((len(flats), self.nbytes), dtype=torch.uint8,
-                          pin_memory=torch.cuda.is_available())
+        out = _pinned(len(flats), self.nbytes)
         rows = out.numpy()
-        R, P = self.shape[0], self.capacity
+        P = self.capacity
         extras = extras or [()] * len(flats)
         for row, flat, stamp, ex in zip(rows, flats, stamps, extras):
             if flat.xyz_q.shape != (P, 3):
@@ -85,11 +117,7 @@ class WireRecord:
                                  f"the record holds {P}")
             row[0:12].view(np.float32)[:] = (flat.t_min, flat.t_scale, stamp)
             row[12:self._blocks].view(np.int32)[:] = flat.counts
-            blocks = [next((e for e in ex if isinstance(e, kind)), inactive)
-                      for kind, inactive in zip(BLOCK_KINDS, _INACTIVE)]
-            vals = np.concatenate([np.asarray(v, np.float32).reshape(-1)
-                                   for b in blocks for v in b])
-            row[self._blocks:self._blocks + 4 * len(vals)].view(np.float32)[:] = vals
+            row[self._blocks:self._xyz].view(np.float32)[:] = _block_values(ex)
             row[self._xyz:self._meta].view(np.int16)[:] = flat.xyz_q.reshape(-1)
             row[self._meta:self._meta + 2 * P] = flat.meta.reshape(-1)
         return out
@@ -97,17 +125,126 @@ class WireRecord:
     def unpack(self, buf: torch.Tensor):
         """(FlatRangeImage, stamp (), (OdomResidual, GravityResidual)) as
         views of one record `buf` (each `valid` a comparison of its slot)."""
-        R, P = self.shape[0], self.capacity
+        P = self.capacity
         head = buf[0:12].view(torch.float32)
         flat = FlatRangeImage(
             xyz_q=buf[self._xyz:self._meta].view(torch.int16).view(P, 3),
             meta=buf[self._meta:self._meta + 2 * P].view(P, 2),
             t_min=head[0], t_scale=head[1],
             counts=buf[12:self._blocks].view(torch.int32), shape=self.shape)
-        b = buf[self._blocks:self._xyz].view(torch.float32)
-        odom = OdomResidual(prev_pos=b[0:3], distance=b[3], weight=b[4], valid=b[5] > 0.5)
-        grav = GravityResidual(g_ref=b[6:9], g_cur=b[9:12], weight=b[12], valid=b[13] > 0.5)
-        return flat, head[2], (odom, grav)
+        return flat, head[2], _unpack_blocks(buf[self._blocks:self._xyz].view(torch.float32))
+
+
+class FloatRecord:
+    """Byte layout of one float sweep (`compress_upload=False`) on the
+    graph's input, for R rings of C firings (n = R*C):
+
+        [stamp f32] [sensor blocks f32 (16)] [xyz f32 (n, 3)]
+        [intensity f32 (n)] [time f32 (n)] [valid u8 (n)]   padded to 16 bytes
+
+    688,208 B for a VLP-16 sweep (16 rings at C = 2048 slots)."""
+
+    def __init__(self, n_rings: int, max_points: int):
+        self.shape = (n_rings, max_points)
+        n = n_rings * max_points
+        self._xyz = 4 + 4 * _BLOCK_LEN
+        self._inten = self._xyz + 12 * n
+        self._time = self._inten + 4 * n
+        self._valid = self._time + 4 * n
+        self.nbytes = -(-(self._valid + n) // 16) * 16
+
+    def pack(self, ris, stamps, extras=None) -> torch.Tensor:
+        """(n, nbytes) uint8 records of n host RangeImages (numpy planes of
+        `shape`), their stamps and sensor residual blocks."""
+        out = _pinned(len(ris), self.nbytes)
+        extras = extras or [()] * len(ris)
+        for row, ri, stamp, ex in zip(out.numpy(), ris, stamps, extras):
+            if np.shape(ri.valid) != self.shape:
+                raise ValueError(f"sweep of shape {np.shape(ri.valid)}, the record "
+                                 f"holds {self.shape}")
+            row[0:4].view(np.float32)[0] = stamp
+            row[4:self._xyz].view(np.float32)[:] = _block_values(ex)
+            row[self._xyz:self._inten].view(np.float32)[:] = np.asarray(ri.xyz).reshape(-1)
+            row[self._inten:self._time].view(np.float32)[:] = np.asarray(ri.intensity).reshape(-1)
+            row[self._time:self._valid].view(np.float32)[:] = np.asarray(ri.time).reshape(-1)
+            row[self._valid:self._valid + ri.valid.size] = np.asarray(ri.valid).reshape(-1)
+        return out
+
+    def unpack(self, buf: torch.Tensor):
+        """(RangeImage, stamp (), blocks) as views of one record `buf`."""
+        R, C = self.shape
+        n = R * C
+        ri = RangeImage(
+            xyz=buf[self._xyz:self._inten].view(torch.float32).view(R, C, 3),
+            intensity=buf[self._inten:self._time].view(torch.float32).view(R, C),
+            time=buf[self._time:self._valid].view(torch.float32).view(R, C),
+            valid=buf[self._valid:self._valid + n].view(R, C) != 0)
+        return ri, buf[0:4].view(torch.float32)[0], _unpack_blocks(
+            buf[4:self._xyz].view(torch.float32))
+
+
+class KeypointRecord:
+    """Byte layout of one multi-LiDAR acquisition on the graph's input: the
+    merged keypoints of the three types at their capacities K0, K1, K2.
+
+        [stamp f32] [sensor blocks f32 (16)]
+        per type: [xyz f32 (K, 3)] [intensity f32 (K)] [time f32 (K)]
+                  [ring i32 (K)] [count i32]
+        per type: [valid u8 (K)]                  padded to 16 bytes
+
+    `write` fills a device record from device tensors, so an acquisition
+    reaches the graph without a host round trip."""
+
+    def __init__(self, capacities):
+        self.capacities = tuple(capacities)
+        off = 4 + 4 * _BLOCK_LEN
+        self._fields = []
+        for K in self.capacities:
+            self._fields.append((off, K))
+            off += 4 * (6 * K + 1)
+        self._valid = []
+        for K in self.capacities:
+            self._valid.append(off)
+            off += K
+        self.nbytes = -(-off // 16) * 16
+
+    def _views(self, buf, i):
+        off, K = self._fields[i]
+        f = buf[off:off + 4 * (6 * K + 1)]
+        xyz = f[:12 * K].view(torch.float32).view(K, 3)
+        inten = f[12 * K:16 * K].view(torch.float32)
+        time = f[16 * K:20 * K].view(torch.float32)
+        ring = f[20 * K:24 * K].view(torch.int32)
+        count = f[24 * K:24 * K + 4].view(torch.int32)
+        return xyz, inten, time, ring, count, buf[self._valid[i]:self._valid[i] + K]
+
+    def write(self, buf: torch.Tensor, kps, stamp: float, extras=()):
+        """Fill the record `buf` (on the keypoints' device) with the merged
+        `kps` (one Keypoints per type), the stamp and the host residuals
+        `extras`; the head goes up from pinned memory without a sync."""
+        head = _pinned(1, 4 + 4 * _BLOCK_LEN)[0]
+        h = head.numpy()
+        h[0:4].view(np.float32)[0] = stamp
+        h[4:].view(np.float32)[:] = _block_values(extras)
+        buf[:head.shape[0]].copy_(head, non_blocking=True)
+        for i, kp in enumerate(kps):
+            xyz, inten, time, ring, count, valid = self._views(buf, i)
+            xyz.copy_(kp.xyz)
+            inten.copy_(kp.intensity)
+            time.copy_(kp.time)
+            ring.copy_(kp.ring)
+            count.copy_(kp.count.reshape(1))
+            valid.copy_(kp.valid)
+
+    def unpack(self, buf: torch.Tensor):
+        """(Keypoints per type, stamp (), blocks) as views of one record."""
+        kps = []
+        for i in range(len(self.capacities)):
+            xyz, inten, time, ring, count, valid = self._views(buf, i)
+            kps.append(Keypoints(xyz=xyz, intensity=inten, time=time, ring=ring,
+                                 valid=valid != 0, count=count[0]))
+        return tuple(kps), buf[0:4].view(torch.float32)[0], _unpack_blocks(
+            buf[4:4 + 4 * _BLOCK_LEN].view(torch.float32))
 
 
 def _leaves(tree):
@@ -143,23 +280,94 @@ def assign_tree(dst, src):
         a.copy_(b)
 
 
-class StreamGraph:
-    """The streaming step on one CUDA device, replayed as a CUDA graph.
-    Owns the static state; see the module docstring."""
+class _Replayed:
+    """A step (`_body`) run eagerly on a side stream for its first
+    WARMUP_STEPS calls, then captured once and replayed: `_step` returns
+    its outputs (the graph's static outputs once captured)."""
 
-    def __init__(self, cfg: SlamConfig, map_cfgs: tuple, device, wire: WireRecord,
-                 blocks=(False, False)):
-        self.cfg = cfg
-        self.blocks = tuple(blocks)   # per BLOCK_KINDS: the graph holds that block
-        self.map_cfgs = map_cfgs
+    def __init__(self, device):
         self.device = torch.device(device)
-        self.wire = wire
-        self.record = torch.zeros(wire.nbytes, dtype=torch.uint8, device=self.device)
-        self.az = torch.zeros((), dtype=torch.float32, device=self.device)
-        self.state = None
         self.graph = None
         self._outputs = None
         self.warmup_steps = 0
+
+    def _step(self):
+        if self.graph is None and self.warmup_steps < WARMUP_STEPS:
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                out = self._body()
+            cur.wait_stream(side)
+            self.warmup_steps += 1
+            return out
+        if self.graph is None:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._outputs = self._body()
+            self.graph = graph
+        self.graph.replay()
+        return self._outputs
+
+
+class ExtractGraph(_Replayed):
+    """One LiDAR device's keypoint extraction and calibration transform
+    (`Slam._extract_merge` on CUDA), replayed as a CUDA graph per device:
+    the input is a FloatRecord of the device's float planes (its stamp
+    field the sweep's time offset to the acquisition's stamp), the static
+    azimuthal resolution and BASE <- LIDAR pose; the output the device's
+    keypoints in BASE, copied out per call (a rig may list a device
+    twice)."""
+
+    def __init__(self, ecfg, device):
+        super().__init__(device)
+        self.ecfg = ecfg
+        self.wire = FloatRecord(ecfg.n_rings, ecfg.max_ring_points)
+        self.record = torch.zeros(self.wire.nbytes, dtype=torch.uint8, device=self.device)
+        self.az = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.pose = torch.zeros(6, dtype=torch.float32, device=self.device)
+
+    def run(self, ri, dt: float, az: float, pose6: np.ndarray):
+        """Keypoints per type of one host sweep `ri` (a RangeImage of numpy
+        planes) shifted by `dt`, at azimuthal resolution `az`, moved by
+        `pose6` (xyzrpy); the inputs go up from pinned memory."""
+        head = _pinned(1, 4 * 6)[0]
+        head.numpy().view(np.float32)[:] = pose6
+        self.pose.copy_(head.view(torch.float32), non_blocking=True)
+        self.record.copy_(self.wire.pack([ri], [dt])[0], non_blocking=True)
+        self.az.fill_(float(np.float32(az)))
+        return clone_tree(self._step())
+
+    def _body(self):
+        ri, dt, _ = self.wire.unpack(self.record)
+        ext = extractor.extract_keypoints(ri, self.az, self.ecfg)
+        return tuple(transform_keypoints(kp, self.pose, dt)
+                     for kp in (ext.edges, ext.planes, ext.blobs))
+
+
+class StreamGraph(_Replayed):
+    """The streaming step of one record kind (`wire`: a WireRecord,
+    FloatRecord or KeypointRecord) on one CUDA device, replayed as a CUDA
+    graph. Owns the static state, or shares another graph's; see the module
+    docstring."""
+
+    def __init__(self, cfg: SlamConfig, map_cfgs: tuple, device, wire,
+                 blocks=(False, False)):
+        super().__init__(device)
+        self.cfg = cfg
+        self.blocks = tuple(blocks)   # per BLOCK_KINDS: the graph holds that block
+        self.map_cfgs = map_cfgs
+        self.wire = wire
+        self._step_fn = pipeline.process_keypoints_stream \
+            if isinstance(wire, KeypointRecord) else pipeline.process_frame_stream
+        self.record = torch.zeros(wire.nbytes, dtype=torch.uint8, device=self.device)
+        self.az = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.state = None
+
+    def share(self, other: "StreamGraph"):
+        """Step `other`'s state and azimuthal-resolution buffers (before the
+        first step): both graphs then read and write the same segment."""
+        self.state, self.az = other.state, other.az
 
     def seed(self, state: pipeline.StreamState, az_resolution: float):
         """Load a segment's state (and the sensor's azimuthal resolution)
@@ -173,13 +381,13 @@ class StreamGraph:
     def set_az(self, az_resolution: float):
         self.az.fill_(float(np.float32(az_resolution)))
 
-    def eager_step(self, ri, stamp: float, first_frame: bool, extras=()):
-        """One step outside the graph (a segment's first sweep, on the
-        per-sweep wire; `extras` its sensor blocks as device tensors).
-        Returns (packed (67,), kps_flat)."""
+    def eager_step(self, inp, stamp: float, first_frame: bool, extras=()):
+        """One step outside the graph (a segment's first sweep on its
+        per-sweep wire, or an acquisition's merged keypoints; `extras` its
+        sensor blocks as device tensors). Returns (packed (67,), kps_flat)."""
         stamp_t = torch.full((), stamp, dtype=torch.float32, device=self.device)
-        new, packed, kps_flat = pipeline.process_frame_stream(
-            ri, self.state, stamp_t, self.az, self.cfg, self.map_cfgs, first_frame, extras)
+        new, packed, kps_flat = self._step_fn(
+            inp, self.state, stamp_t, self.az, self.cfg, self.map_cfgs, first_frame, extras)
         assign_tree(self.state, new)
         return packed, kps_flat
 
@@ -201,28 +409,16 @@ class StreamGraph:
                 dst[w].copy_(k)
         return packed_out, kps_out
 
+    def step(self):
+        """Step the record already written into `record` (a KeypointRecord's
+        `write`). Returns copies of (packed (67,), kps_flat)."""
+        packed, kps_flat = self._step()
+        return packed.clone(), tuple(k.clone() for k in kps_flat)
+
     def _body(self):
-        flat, stamp, blocks = self.wire.unpack(self.record)
+        inp, stamp, blocks = self.wire.unpack(self.record)
         extras = tuple(b for b, held in zip(blocks, self.blocks) if held)
-        new, packed, kps_flat = pipeline.process_frame_stream(
-            flat, self.state, stamp, self.az, self.cfg, self.map_cfgs, False, extras)
+        new, packed, kps_flat = self._step_fn(
+            inp, self.state, stamp, self.az, self.cfg, self.map_cfgs, False, extras)
         assign_tree(self.state, new)
         return packed, kps_flat
-
-    def _step(self):
-        if self.graph is None and self.warmup_steps < WARMUP_STEPS:
-            cur = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                out = self._body()
-            cur.wait_stream(side)
-            self.warmup_steps += 1
-            return out
-        if self.graph is None:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self._outputs = self._body()
-            self.graph = graph
-        self.graph.replay()
-        return self._outputs

@@ -1,17 +1,27 @@
-"""SLAM orchestrator (PyTorch port of `lidarslam_tpu/slam.py`, single-LiDAR
-subset).
+"""SLAM orchestrator (PyTorch port of `lidarslam_tpu/slam.py`).
 
 `Slam.add_frame` runs one sweep through `ops/pipeline.process_frame` on the
-Slam's device and keeps the float64 pose bookkeeping, the trajectory log and
-the rolling-map origin on the host, as the JAX package does.
+Slam's device and keeps the float64 pose bookkeeping, the trajectory and
+keypoint logs and the rolling-map origin on the host, as the JAX package
+does. `Slam.add_frames` takes one acquisition of a multi-LiDAR rig: each
+device's sweep is extracted with its own `ExtractorConfig`, moved into BASE
+by its calibration offset (`set_base_to_lidar_offset`), time-rebased to the
+first frame's stamp, and the merged keypoints go through
+`pipeline.process_keypoints`.
 
-Streaming (`add_frame_async` + `flush`) chains the device `StreamState` from
-sweep to sweep with no host sync until `flush`, with the JAX package's
-segment rules: a segment's first sweep and a partial window at `flush` run
-per sweep, full windows of `cfg.stream_window` sweeps as one upload, a
-flush ends the segment and the next one is seeded from the host's float64
-state. On CUDA every steady-state sweep is a replay of one captured CUDA
-graph (`ops/stream_graph.py`); on the CPU the same step runs eagerly.
+Streaming (`add_frame_async` / `add_frames_async` + `flush`) chains the
+device `StreamState` from sweep to sweep with no host sync until `flush`,
+with the JAX package's segment rules: a segment's first sweep and a partial
+window at `flush` run per sweep, full windows of `cfg.stream_window` sweeps
+as one upload, a flush ends the segment and the next one is seeded from the
+host's float64 state. A full window is stacked, uploaded and stepped on the
+calling thread (the JAX package uses a worker thread; ROADMAP Queue 3,
+D5). On CUDA every steady-state sweep is a replay
+of a captured CUDA graph (`ops/stream_graph.py`): one for the sweeps (the
+flat wire, or the float planes with `compress_upload=False`) and one for a
+rig's merged keypoints, which share the segment's state; a rig's
+per-device extraction is a graph per device, on both paths. On the CPU the
+same steps run eagerly.
 
 Coordinate frames:
 - BASE: sensor platform frame of the current sweep (keypoints live here).
@@ -22,7 +32,8 @@ Coordinate frames:
 
 The confidence surface (LCP overlap from the device, motion-limit checks
 on the host's float64 log) fills `overlap` and `comply_motion_limits` in
-every summary dict, on both paths.
+every summary dict, on both paths; a rig's acquisition has no range image
+and so no overlap (-1), as in the JAX package.
 
 Wheel odometry and IMU gravity (`sensors/constraints.py`) are measured on
 the host and enter the localization solve as residual blocks, on both
@@ -30,14 +41,15 @@ paths. In the CPU stream a sweep that carries them runs alone, as in the
 JAX package; on CUDA it stays in its window, since the graph replays each
 sweep's input record on its own and the blocks ride in that record.
 
-Multi-LiDAR (and its streaming step), pose-graph optimization, keypoint
-logs, checkpoints and the debug surface are not ported yet (ROADMAP.md).
+Pose-graph optimization, checkpoints and the debug surface are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time as _time
 from typing import Dict, List, Optional
 
@@ -48,14 +60,17 @@ from lidarslam_tpu_torch import confidence
 from lidarslam_tpu_torch.config import (KEYPOINT_NAMES, EgoMotionMode, Keypoint,
                                        MappingMode, SlamConfig)
 from lidarslam_tpu_torch.core import se3
-from lidarslam_tpu_torch.ops import pipeline, stream_graph, undistortion, voxel_map
-from lidarslam_tpu_torch.ops.frame import (Keypoints, KeypointsView, build_range_image,
-                                           ensure_range_image,
+from lidarslam_tpu_torch.io import storage
+from lidarslam_tpu_torch.ops import extractor, pipeline, stream_graph, undistortion, voxel_map
+from lidarslam_tpu_torch.ops.frame import (Keypoints, KeypointsView, PackedRangeImage,
+                                           RangeImage, build_range_image, ensure_range_image,
                                            estimate_azimuthal_resolution,
-                                           flatten_packed, stack_range_images,
-                                           to_device_range_image)
+                                           flatten_packed, merge_keypoints,
+                                           stack_range_images, to_device_range_image,
+                                           transform_keypoints)
 from lidarslam_tpu_torch.sensors.constraints import (ImuManager, WheelOdometryManager,
                                                      on_device)
+from lidarslam_tpu_torch.utils import timer
 
 
 def _shared_resolution(cfg: SlamConfig) -> float:
@@ -72,20 +87,29 @@ def _shared_resolution(cfg: SlamConfig) -> float:
     return quanta * lcm / 1000.0
 
 
+def _valid_az(az: float) -> bool:
+    return 1e-6 < az <= np.pi / 4
+
+
 class Slam:
-    """The public SLAM engine API, single-LiDAR subset: `add_frame` per
-    sweep, or `add_frame_async` + `flush` streaming.
+    """The public SLAM engine API: `add_frame` per sweep or `add_frames` per
+    multi-LiDAR acquisition, or `add_frame_async` / `add_frames_async` +
+    `flush` streaming.
 
-    `device` has no default: "cuda" runs the k-NN kernel (and replays the
-    streaming step as a CUDA graph), "cpu" the plain PyTorch versions."""
+    `device` "cuda" (the default) runs the k-NN kernel and replays the
+    streaming step as a CUDA graph; it raises where no CUDA device exists.
+    "cpu" runs the plain PyTorch versions."""
 
-    def __init__(self, config: Optional[SlamConfig] = None, *, device):
+    def __init__(self, config: Optional[SlamConfig] = None, *, device="cuda"):
         self.cfg = config or SlamConfig()
         if self.cfg.two_d_mode and not self.cfg.solver.two_d_mode:
             self.cfg = dataclasses.replace(
                 self.cfg, solver=dataclasses.replace(self.cfg.solver, two_d_mode=True))
         cfg = self.cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Slam runs on a CUDA device unless asked for another "
+                               "(device='cpu'), and torch finds none")
         if len(cfg.used_types) == 0:
             raise ValueError("at least one keypoint type must be enabled")
         if len({cfg.map_config(k).grid_size for k in cfg.used_types}) != 1:
@@ -97,7 +121,12 @@ class Slam:
             dataclasses.replace(cfg.map_config(Keypoint(i)), voxel_resolution=shared_res)
             for i in range(3))
         self.map_cfgs = {k: self._map_cfgs_tuple[int(k)] for k in cfg.used_types}
-        self._graph = None   # stream_graph.StreamGraph, built at first use on CUDA
+        self._graph = None       # stream_graph.StreamGraph of the sweeps (CUDA)
+        self._rig_graph = None   # ... of a rig's merged keypoints, sharing its state
+        self._extract_graphs = {}   # device_id -> stream_graph.ExtractGraph (CUDA)
+        self._profiler = None    # (torch.profiler.profile, log_dir) while profiling
+        # per-LiDAR-device calibration: BASE <- LIDAR (Slam.h:502-505)
+        self.base_to_lidar_offsets: Dict[int, np.ndarray] = {}
         self.reset()
 
     # ------------------------------------------------------------------
@@ -124,6 +153,7 @@ class Slam:
         self.latency = 0.0
         self.mapping_mode = cfg.mapping_mode
         self.azimuthal_resolution = cfg.extractor.azimuthal_resolution
+        self._az_by_device: Dict[int, float] = {}
         self.last_stamp = None
         self.last_seq = None
         self.failure = False
@@ -146,6 +176,7 @@ class Slam:
         if reset_log:
             self.n_frames = 0
             self.log_trajectory: List[dict] = []  # {time, pose (4,4), covariance}
+            self.log_keypoints: List[dict] = []   # per frame {type: stored keypoints}
 
     def _invalidate_submaps(self):
         """Mark the cached submap selections stale (reset, external map
@@ -153,6 +184,11 @@ class Slam:
         self._submap_cache = pipeline.init_submap_cache(self.cfg, self._map_cfgs_tuple,
                                                         self.device)
         self._cache_stale = True
+
+    def _prev_keypoints(self):
+        return self._device_keypoints if self._device_keypoints is not None \
+            else tuple(Keypoints.empty(self.cfg.extractor.kp_capacity(i), self.device)
+                       for i in range(3))
 
     # ------------------------------------------------------------------
     # Main entry
@@ -166,6 +202,7 @@ class Slam:
         `next_frame` to build and upload its wire right after this sweep's
         step is issued. Returns a summary dict."""
         t0 = _time.perf_counter()
+        cfg = self.cfg
         skip = self._check_frame(frame)
         if skip:
             return skip
@@ -175,34 +212,110 @@ class Slam:
             ri = pre[1]
         else:
             ri = self._build_ri(frame)
-        if self.azimuthal_resolution <= 1e-6 or self.azimuthal_resolution > np.pi / 4:
+        if not _valid_az(self.azimuthal_resolution):
             self.azimuthal_resolution = float(
                 estimate_azimuthal_resolution(ensure_range_image(ri)))
 
         inp = self._make_inputs(stamp)
         first = not self._maps_populated
         maps_in = tuple(self.maps.get(Keypoint(i)) for i in range(3))
-        prev_kp = self._device_keypoints if self._device_keypoints is not None \
-            else tuple(Keypoints.empty(self.cfg.extractor.kp_capacity(i), self.device)
-                       for i in range(3))
-        res = pipeline.process_frame(ri, maps_in, prev_kp, inp, self.cfg,
+        if cfg.verbosity >= 3:
+            timer.init("device step")
+        res = pipeline.process_frame(ri, maps_in, self._prev_keypoints(), inp, cfg,
                                      self._map_cfgs_tuple, first)
         if next_frame is not None and next_frame.get("xyz") is not None \
                 and len(next_frame["xyz"]) > 0:
             self._prefetched = (next_frame["stamp"], self._build_ri(next_frame))
+        if cfg.verbosity >= 3:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            timer.stop_and_display("device step")
         out = self._apply_result(res, stamp, t0)
         self.last_stamp = frame["stamp"]
         return out
 
     def _build_ri(self, frame, device=None):
         """The sweep's wire on the Slam's device; `device=False`: the host
-        PackedRangeImage of a window sweep."""
+        sweep of a window (a PackedRangeImage, or float planes)."""
         cfg = self.cfg
         return build_range_image(frame["xyz"], frame["intensity"], frame["laser_id"],
                                  frame["time"], cfg.extractor.n_rings,
                                  cfg.extractor.max_ring_points,
                                  packed=cfg.compress_upload,
                                  device=self.device if device is None else device)
+
+    def add_frames(self, frames) -> dict:
+        """Process one synchronized multi-LiDAR acquisition
+        (Slam::AddFrames, Slam.cxx:230-344 + ExtractKeypoints 746-810).
+
+        Each frame dict carries a `device_id`; per-device sweeps are
+        extracted independently, transformed into BASE by the per-device
+        calibration offsets, time-rebased to the first frame's stamp, and
+        the keypoint sets merged before the shared pipeline. A lone frame of
+        an uncalibrated device goes to `add_frame`."""
+        t0 = _time.perf_counter()
+        frames = [f for f in frames if f["xyz"] is not None and len(f["xyz"])]
+        if not frames:
+            return {"skipped": "empty"}
+        if len(frames) == 1 and int(frames[0].get("device_id", 0)) not in \
+                self.base_to_lidar_offsets:
+            return self.add_frame(frames[0])
+        skip = self._check_frame(frames[0])
+        if skip:
+            return skip
+        stamp = float(frames[0]["stamp"])
+        kps = self._extract_merge(frames, stamp)
+        inp = self._make_inputs(stamp)
+        first = not self._maps_populated
+        maps_in = tuple(self.maps.get(Keypoint(i)) for i in range(3))
+        res = pipeline.process_keypoints(kps, None, maps_in, self._prev_keypoints(), inp,
+                                         self.cfg, self._map_cfgs_tuple, first)
+        out = self._apply_result(res, stamp, t0)
+        self.last_stamp = frames[0]["stamp"]
+        return out
+
+    def _extract_merge(self, frames, stamp):
+        """Per-device extraction (each LiDAR with its own ExtractorConfig and
+        azimuthal resolution, estimated once and kept, Slam.h:239-245 /
+        LidarSlamNode.cxx:791-817), BASE-frame transform by calibration
+        offset, time rebase, and merge into one keypoint set per type at the
+        default extractor's capacities."""
+        cfg = self.cfg
+        cuda = self.device.type == "cuda"
+        per_type = ([], [], [])
+        for f in frames:
+            dev = int(f.get("device_id", 0))
+            ecfg = cfg.extractor_for(dev)
+            ri = build_range_image(f["xyz"], f["intensity"], f["laser_id"], f["time"],
+                                   ecfg.n_rings, ecfg.max_ring_points,
+                                   device=False if cuda else self.device)
+            az = self._az_by_device.get(dev, ecfg.azimuthal_resolution)
+            if not _valid_az(az):
+                az = float(estimate_azimuthal_resolution(
+                    RangeImage(*(torch.as_tensor(a) for a in ri))))
+                self._az_by_device[dev] = az
+            if self.azimuthal_resolution <= 1e-6:
+                self.azimuthal_resolution = az
+            pose6 = se3.hmat_to_pose(self.base_to_lidar_offsets.get(dev, np.eye(4)))
+            dt = float(f["stamp"]) - stamp
+            if cuda:    # one graph per device: extraction and transform replayed
+                g = self._extract_graphs.get(dev)
+                if g is None or g.ecfg is not ecfg:
+                    g = self._extract_graphs[dev] = stream_graph.ExtractGraph(ecfg, self.device)
+                kps = g.run(ri, dt, az, pose6)
+            else:
+                ext = extractor.extract_keypoints(ri, float(np.float32(az)), ecfg)
+                pose = torch.tensor(pose6, dtype=torch.float32)
+                kps = [transform_keypoints(kp, pose, dt)
+                       for kp in (ext.edges, ext.planes, ext.blobs)]
+            for i, kp in enumerate(kps):
+                per_type[i].append(kp)
+        return tuple(merge_keypoints(per_type[i], cfg.extractor.kp_capacity(i))
+                     for i in range(3))
+
+    def set_base_to_lidar_offset(self, device_id: int, hmat):
+        """Static LIDAR-in-BASE calibration per device (Slam.h:502-505)."""
+        self.base_to_lidar_offsets[int(device_id)] = np.asarray(hmat, np.float64)
 
     # ------------------------------------------------------------------
     # Streaming (device-chained) mode: no host sync until flush
@@ -217,7 +330,6 @@ class Slam:
         `flush()`, which fills the logs and returns the results. Mixing with
         `add_frame` is allowed across a flush. Sweeps buffer on the host
         and every `cfg.stream_window` of them go up in one upload."""
-        self._check_stream_supported()
         skip = self._check_frame(frame)
         if skip:
             return -1
@@ -229,8 +341,7 @@ class Slam:
         # until a valid azimuthal-resolution estimate exists (the first
         # sweep against preloaded maps) sweeps take the per-frame path,
         # which estimates it
-        az_invalid = (self.azimuthal_resolution <= 1e-6
-                      or self.azimuthal_resolution > np.pi / 4)
+        az_invalid = not _valid_az(self.azimuthal_resolution)
         # on CUDA every steady-state sweep replays the graph, so a window of
         # one is still a window
         windowed = not first and not az_invalid and (self.cfg.stream_window > 1
@@ -265,32 +376,79 @@ class Slam:
         self._stream_enqueued += 1
         return idx
 
+    def add_frames_async(self, frames) -> int:
+        """Streaming multi-LiDAR: enqueue one synchronized acquisition (per
+        device extraction, transform and merge as in `add_frames`), whose
+        merged keypoints step the device-resident stream (on CUDA a replay
+        of the rig's graph). Returns the pending frame
+        index; results land at `flush()`. A lone frame of an uncalibrated
+        device on the default extractor goes to `add_frame_async`; a device
+        with its own ExtractorConfig keeps this path."""
+        cfg = self.cfg
+        frames = [f for f in frames if f["xyz"] is not None and len(f["xyz"])]
+        if not frames:
+            return -1
+        dev0 = int(frames[0].get("device_id", 0))
+        if len(frames) == 1 and dev0 not in self.base_to_lidar_offsets \
+                and cfg.extractor_for(dev0) is cfg.extractor:
+            return self.add_frame_async(frames[0])
+        skip = self._check_frame(frames[0])
+        if skip:
+            return -1
+        stamp = float(frames[0]["stamp"])
+        self._ensure_stream_state()
+        kps = self._extract_merge(frames, stamp)
+        self._drain_window()        # a partial window runs first, in order
+        extras = self._stream_extras(stamp)
+        first = not self._maps_populated and self._stream_enqueued == 0 \
+            and self.n_frames == 0
+        if self._graph is not None:
+            g = self._rig_graph_for(extras)
+            g.set_az(self.azimuthal_resolution)
+            if first:
+                packed, kps_flat = g.eager_step(
+                    kps, stamp, True, tuple(on_device(e, self.device) for e in extras))
+            else:   # the record goes up and is replayed without a host sync
+                g.wire.write(g.record, kps, stamp, extras)
+                packed, kps_flat = g.step()
+        else:
+            self._stream_state, packed, kps_flat = pipeline.process_keypoints_stream(
+                kps, self._stream_state, self._f32(stamp),
+                self._f32(self.azimuthal_resolution), cfg, self._map_cfgs_tuple, first,
+                tuple(on_device(e, self.device) for e in extras))
+        self._stream_pending.append({"stamps": [stamp], "packed": packed,
+                                     "kps_flat": kps_flat})
+        self.last_stamp = frames[0]["stamp"]
+        idx = self._stream_enqueued
+        self._stream_enqueued += 1
+        return idx
+
     def _f32(self, x) -> torch.Tensor:
         return torch.full((), float(np.float32(x)), dtype=torch.float32,
                           device=self.device)
 
-    def _check_stream_supported(self):
-        """Raise where the config asks streaming for what is not ported."""
-        if not self.cfg.compress_upload:
-            raise NotImplementedError("streaming takes the quantized wire "
-                                      "(compress_upload=True) only")
-
     def _dispatch_window(self):
-        """Run the buffered sweeps (a full window, or a partial one at
-        flush on CUDA) in order: on CUDA one upload of their flat-wire
-        records and one graph replay each, on the CPU the eager window."""
+        """Run the buffered full window."""
         buf, self._window_buf = self._window_buf, []
+        self._run_window(buf)
+
+    def _run_window(self, buf):
+        """Step buffered sweeps in order: on CUDA one upload of their
+        records (flat wire or float planes) and one graph replay each, on
+        the CPU the eager window."""
         cfg = self.cfg
         stamps = [s for _, s, _ in buf]
         if self._graph is not None:
-            self._graph_with_blocks([e for _, _, ex in buf for e in ex])
-            wire = self._graph.wire
-            records = wire.pack([flatten_packed(r, wire.capacity) for r, _, _ in buf],
-                                stamps, [ex for _, _, ex in buf])
-            packed, kps_flat = self._graph.run(records.to(self.device, non_blocking=True))
+            with torch.cuda.device(self.device):
+                self._graph_with_blocks([e for _, _, ex in buf for e in ex])
+                wire = self._graph.wire
+                sweeps = [flatten_packed(r, wire.capacity) if isinstance(r, PackedRangeImage)
+                          else r for r, _, _ in buf]
+                records = wire.pack(sweeps, stamps, [ex for _, _, ex in buf])
+                packed, kps_flat = self._graph.run(records.to(self.device, non_blocking=True))
         else:
             ris = [r for r, _, _ in buf]
-            if cfg.flat_wire:
+            if cfg.flat_wire and isinstance(ris[0], PackedRangeImage):
                 ris = [flatten_packed(r, cfg.wire_capacity) for r in ris]
             self._stream_state, packed, kps_flat = pipeline.process_stream_window(
                 stack_range_images(ris, self.device), self._stream_state,
@@ -302,13 +460,13 @@ class Slam:
     def _drain_window(self):
         """Run a buffered partial window sweep by sweep (on CUDA: graph
         replays of one upload; on the CPU: the per-frame step on each
-        sweep's dense planes, as the JAX package does)."""
+        sweep's planes, as the JAX package does)."""
         if not self._window_buf:
             return
-        if self._graph is not None:
-            self._dispatch_window()
-            return
         buf, self._window_buf = self._window_buf, []
+        if self._graph is not None:
+            self._run_window(buf)
+            return
         for ri_host, stamp, _ in buf:
             self._stream_state, packed, kps_flat = pipeline.process_frame_stream(
                 to_device_range_image(ri_host, self.device), self._stream_state,
@@ -356,9 +514,11 @@ class Slam:
                 ecfg = cfg.extractor
                 cap = (cfg.wire_capacity if cfg.flat_wire else 0) \
                     or ecfg.n_rings * ecfg.max_ring_points
+                wire = stream_graph.WireRecord(ecfg.n_rings, ecfg.max_ring_points, cap) \
+                    if cfg.compress_upload \
+                    else stream_graph.FloatRecord(ecfg.n_rings, ecfg.max_ring_points)
                 self._graph = stream_graph.StreamGraph(
-                    cfg, self._map_cfgs_tuple, self.device,
-                    stream_graph.WireRecord(ecfg.n_rings, ecfg.max_ring_points, cap),
+                    cfg, self._map_cfgs_tuple, self.device, wire,
                     blocks=(self.wheel_odom.weight > 1e-6, self.imu.weight > 1e-6))
             self._graph.seed(state, self.azimuthal_resolution)
             state = self._graph.state
@@ -378,6 +538,20 @@ class Slam:
                                                g.wire, blocks=need)
         self._graph.seed(g.state, self.azimuthal_resolution)
         self._stream_state = self._graph.state
+
+    def _rig_graph_for(self, extras):
+        """The graph of a rig's merged keypoints: built at first use, and
+        anew whenever the sweep graph was (for a block it lacked), sharing
+        the sweep graph's state and blocks."""
+        self._graph_with_blocks(extras)
+        g = self._graph
+        if self._rig_graph is None or self._rig_graph.state is not g.state:
+            caps = [self.cfg.extractor.kp_capacity(i) for i in range(3)]
+            self._rig_graph = stream_graph.StreamGraph(
+                self.cfg, self._map_cfgs_tuple, self.device,
+                stream_graph.KeypointRecord(caps), blocks=g.blocks)
+            self._rig_graph.share(g)
+        return self._rig_graph
 
     def _stream_extras(self, stamp):
         """The sweep's sensor residual blocks (host values, prev_pos rebased
@@ -583,8 +757,10 @@ class Slam:
             self.comply_motion_limits = status.comply
 
     def _log_state(self, stamp):
-        """Trajectory/covariance logging with timeout pruning
-        (Slam::LogCurrentFrameState, Slam.cxx:1225-1264)."""
+        """Trajectory/covariance/keypoint logging with timeout pruning
+        (Slam::LogCurrentFrameState, Slam.cxx:1225-1264). Each frame's
+        keypoints go through `cfg.logging_storage` (io/storage.py); the
+        DEVICE tier keeps tensors of the log's own."""
         cfg = self.cfg
         self.log_trajectory.append({"time": stamp, "pose": self.Tworld.copy(),
                                     "covariance": self.covariance.copy()})
@@ -595,6 +771,25 @@ class Slam:
             while (len(self.log_trajectory) > 2
                    and stamp - self.log_trajectory[0]["time"] > cfg.logging_timeout):
                 self.log_trajectory.pop(0)
+                if self.log_keypoints:
+                    self.log_keypoints.pop(0)
+        if cfg.logging_timeout != 0:
+            self.log_keypoints.append(
+                {k: storage.store(self.current_keypoints[k], cfg.logging_storage,
+                                  directory=cfg.logging_dir,
+                                  tag=f"{self.n_frames:06d}_{KEYPOINT_NAMES[k]}")
+                 for k in cfg.used_types})
+
+    def get_log_memory_usage(self) -> dict:
+        """Bytes held by the keypoint log per storage tier (the verbosity-5
+        log-memory report, Slam.cxx:318-338 / PointCloudStorage MemorySize)."""
+        total = {"ram": 0, "disk": 0, "device": 0}
+        for entry in self.log_keypoints:
+            for obj in entry.values():
+                for tier, b in storage.memory_size(obj).items():
+                    total[tier] += b
+        total["n_frames"] = len(self.log_keypoints)
+        return total
 
     # ------------------------------------------------------------------
     # Results API
@@ -708,6 +903,41 @@ class Slam:
 
     def get_sensor_time_offset(self) -> float:
         return float(self.wheel_odom.time_offset)
+
+    # ------------------------------------------------------------------
+    # Profiling (the reference's Utils::Timer instrumentation,
+    # Utilities.h:353-399, and a device trace)
+    # ------------------------------------------------------------------
+
+    def start_profiling(self, log_dir: str):
+        """Start a torch.profiler trace (host ops, and the CUDA kernels and
+        copies on a GPU) that `stop_profiling` writes under `log_dir`; read
+        it with `utils/profiling.py`, chrome://tracing or Perfetto."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._profiler = (profile(activities=acts), log_dir)
+        self._profiler[0].start()
+
+    def stop_profiling(self) -> str:
+        """Wait for the enqueued work, stop the trace and write it as a
+        Chrome trace under the `start_profiling` log_dir; returns its path."""
+        if self._profiler is None:
+            raise RuntimeError("stop_profiling without start_profiling")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        (prof, log_dir), self._profiler = self._profiler, None
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        path = os.path.join(log_dir, f"slam_{os.getpid()}_{_time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        return path
+
+    def get_timing_summary(self) -> dict:
+        """Host-side named-timer accumulators (verbosity >= 3 stages)."""
+        return timer.summary()
 
     def load_numpy_state(self, state: dict):
         """Continue from another engine's state (see state.py)."""

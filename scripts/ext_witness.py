@@ -59,8 +59,9 @@ def _record(cfg, frames, sensors, path, device):
     """One run in ext_record's format."""
     import chip_smoke
 
-    results, counts, slam, _ = chip_smoke._ext_run(cfg, frames, sensors, path == "stream",
-                                                   device)
+    with chip_smoke.numpy_ingest():     # as the JAX references were made
+        results, counts, slam, _ = chip_smoke._ext_run(cfg, frames, sensors,
+                                                       path == "stream", device)
     return chip_smoke.ext_record(results, counts, slam, frames[-1]["stamp"])
 
 

@@ -115,6 +115,13 @@ def main() -> int:
             "plane": cfg.loc_matching.plane_nb_neighbors}
     if k_of["edge"] == k_of["plane"]:
         raise AssertionError("edges and planes ask for the same k; k cannot tell them apart")
+    # the JAX trajectories were made on numpy ingest (ROADMAP Queue 3, F5);
+    # a tree from before the port's native ingest has nothing to pin
+    try:
+        from lidarslam_tpu_torch.io import native
+        native.available = lambda: False
+    except ImportError:
+        pass
     out = {"tree": str(ROOT), "card": card, "stream": _profile_stream(frames, cfg)}
     print(f"[probe] {ROOT}: stream frames {out['stream']['frames']}: device busy "
           f"{out['stream']['busy_ms']:.4f} ms/frame, k-NN kernels "

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Write the JAX package's VLP-16 trajectories for the PyTorch port.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_reference.py [--which bench|full|ext|all]
+    JAX_PLATFORMS=cpu python scripts/make_torch_reference.py \
+        [--which bench|full|ext|float|rig|all]
 
 Runs the JAX package's `Slam` on the CPU over the first `chip_smoke.N_FRAMES`
 (30) sweeps of the bench sequence (weaving street trajectory), through
@@ -20,19 +21,29 @@ Runs the JAX package's `Slam` on the CPU over the first `chip_smoke.N_FRAMES`
   map, edge-map decay and wheel-odometry / IMU-gravity residuals
   (`chip_smoke.ext_config`), fed `chip_smoke.sensor_measurements` of the
   drive's ground truth, on the same distorted sweeps ->
-  `vlp16_ext_ref.npz`, `vlp16_ext_stream_ref.npz`.
+  `vlp16_ext_ref.npz`, `vlp16_ext_stream_ref.npz`;
+- `float`: the bench stream with `compress_upload=False` (float sweeps
+  stacked per window) -> `vlp16_bench_float_stream_ref.npz`;
+- `rig`: `chip_smoke.rig_config` on the 30 acquisitions of
+  `chip_smoke.render_rig` (two VLP-16s, device 1 at its calibration offset
+  with its own extractor), through `Slam.add_frames` and through
+  `Slam.add_frames_async` + `flush` -> `vlp16_rig_ref.npz`,
+  `vlp16_rig_stream_ref.npz`.
 
 Each holds per frame the poses (float64 4x4), `n_matches`, `failure`,
-`overlap`, `comply_motion_limits` and `stamps`; the `ext` files also the
-per-type match counts (`match_counts`), each map's valid slots after the
-last frame (`map_valid`) and the age of the edge map's oldest removable
-point then (`edge_oldest_age`). `chip_smoke.py` holds the
-port's trajectories on the GPU against these files, since the GPU machine
-has no jax.
+`overlap`, `comply_motion_limits`, `stamps` and, in the files written
+since the rig's, the per-type match counts (`match_counts`); the `ext`
+files also each map's valid slots after the last frame (`map_valid`) and
+the age of the edge map's oldest removable point then
+(`edge_oldest_age`). `chip_smoke.py` holds the port's trajectories on the
+GPU against these files, since the GPU machine has no jax.
 
-The sweeps go through the JAX package's numpy ingest (its optional native
-C++ ingest is switched off for the run): the port has no native ingest
-yet, and the two differ in the rounding of a few quantized coordinates.
+The single-LiDAR sweeps go through the JAX package's numpy ingest (its
+optional native C++ ingest is switched off for those runs): the native and
+numpy ingests differ in the rounding of a few quantized coordinates, and
+`chip_smoke.py` pins the port to numpy for these references. The rig runs
+on the native ingest where it loads; its sweeps take the float planes,
+which both ingests fill bit for bit.
 """
 
 from __future__ import annotations
@@ -86,36 +97,38 @@ def full_jax_config(bench_cfg):
                                     acceleration_limits=chip_smoke.FULL_ACCELERATION_LIMITS))
 
 
-def _run_both(Slam, cfg, frames, out, sync_name, stream_name, sensors=None):
+def _run_both(Slam, cfg, frames, out, sync_name, stream_name, sensors=None,
+              offset=None, per_type=False):
     """Both paths; `sensors`: chip_smoke.sensor_measurements fed to each
-    Slam first, and the map record and per-type match counts saved."""
+    Slam first, and the map record and per-type match counts saved;
+    `offset`: `frames` are rig acquisitions (lists of frame dicts) through
+    add_frames / add_frames_async, device 1 mounted at `offset`;
+    `per_type`: save the per-type match counts; `sync_name` None: the
+    stream only."""
     import chip_smoke
 
     def start():
         slam = Slam(cfg)
         if sensors is not None:
             chip_smoke.feed_sensors(slam, sensors)
+        if offset is not None:
+            slam.set_base_to_lidar_offset(1, offset)
         return slam
 
     def extra(slam, counts):
-        if sensors is None:
-            return {}
-        return {**_map_record(slam, frames[-1]["stamp"]),
-                "match_counts": np.asarray(counts, np.int64)}
+        out = {**_map_record(slam, stamped[-1]["stamp"])} if sensors is not None else {}
+        if sensors is not None or per_type:
+            out["match_counts"] = np.asarray(counts, np.int64)
+        return out
 
-    slam = start()
-    results, counts = [], []
-    for i, f in enumerate(frames):
-        results.append(slam.add_frame(f))
-        counts.append(slam.match_counts.copy())
-        print(f"frame {i}: n_matches {results[-1]['n_matches']} {counts[-1].tolist()} "
-              f"failure {results[-1]['failure']} overlap {results[-1]['overlap']:.4f} "
-              f"comply {results[-1]['comply_motion_limits']}", file=sys.stderr)
-    _save(out / sync_name, results, frames, **extra(slam, counts))
-
+    add, add_async = ("add_frames", "add_frames_async") if offset is not None \
+        else ("add_frame", "add_frame_async")
+    stamped = [f[0] if offset is not None else f for f in frames]
+    if sync_name is not None:
+        _sync(start(), add, frames, stamped, out / sync_name, extra)
     slam = start()
     for f in frames:
-        slam.add_frame_async(f)
+        getattr(slam, add_async)(f)
     counts = []
     real = slam._log_state
 
@@ -126,7 +139,18 @@ def _run_both(Slam, cfg, frames, out, sync_name, stream_name, sensors=None):
     results = slam.flush()
     print("stream n_matches " + " ".join(str(r["n_matches"]) for r in results),
           file=sys.stderr)
-    _save(out / stream_name, results, frames, **extra(slam, counts))
+    _save(out / stream_name, results, stamped, **extra(slam, counts))
+
+
+def _sync(slam, add, frames, stamped, path, extra):
+    results, counts = [], []
+    for i, f in enumerate(frames):
+        results.append(getattr(slam, add)(f))
+        counts.append(slam.match_counts.copy())
+        print(f"frame {i}: n_matches {results[-1]['n_matches']} {counts[-1].tolist()} "
+              f"failure {results[-1]['failure']} overlap {results[-1]['overlap']:.4f} "
+              f"comply {results[-1]['comply_motion_limits']}", file=sys.stderr)
+    _save(path, results, stamped, **extra(slam, counts))
 
 
 def ext_jax_config(bench_cfg):
@@ -147,7 +171,8 @@ def ext_jax_config(bench_cfg):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=str(ROOT / "lidarslam_tpu_torch" / "data"))
-    ap.add_argument("--which", choices=("bench", "full", "ext", "all"), default="all")
+    ap.add_argument("--which", choices=("bench", "full", "ext", "float", "rig", "all"),
+                    default="all")
     args = ap.parse_args()
 
     import jax
@@ -159,7 +184,8 @@ def main():
     from lidarslam_tpu import Slam
     from lidarslam_tpu.io import native, synthetic
 
-    native.available = lambda: False      # numpy ingest, as the port has
+    native_available = native.available
+    native.available = lambda: False      # numpy ingest (see the docstring)
     cfg = bench.bench_config(16, 1800)
     if cfg.stream_window != 8 or not cfg.flat_wire:
         raise SystemExit("bench_config no longer streams 8-sweep flat-wire windows")
@@ -183,6 +209,17 @@ def main():
                                                  chip_smoke.SENSOR_END_S)
         _run_both(Slam, ext_jax_config(cfg), frames(True), out, "vlp16_ext_ref.npz",
                   "vlp16_ext_stream_ref.npz", sensors=sensors)
+    if args.which in ("float", "all"):
+        _run_both(Slam, dataclasses.replace(cfg, compress_upload=False), frames(False), out,
+                  None, "vlp16_bench_float_stream_ref.npz", per_type=True)
+    if args.which in ("rig", "all"):
+        native.available = native_available
+        rig_cfg = full_jax_config(cfg)
+        rig_cfg = dataclasses.replace(
+            rig_cfg, device_extractors=((1, dataclasses.replace(rig_cfg.extractor)),))
+        acquisitions, offset = chip_smoke.render_rig(N_FRAMES)
+        _run_both(Slam, rig_cfg, acquisitions, out, "vlp16_rig_ref.npz",
+                  "vlp16_rig_stream_ref.npz", offset=offset, per_type=True)
     print(f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
 

@@ -479,3 +479,97 @@ def test_cuda_ext_pipeline_matches_cpu(cuda, blobs):
             assert abs(a["n_matches"] - b["n_matches"]) <= flips * max(b["n_matches"], 1)
             assert abs(a["overlap"] - b["overlap"]) < 1e-3
             assert a["comply_motion_limits"] == b["comply_motion_limits"]
+
+
+def _split_rig(frame, offset):
+    """tests/test_multilidar_debug.py's two-LiDAR split of one sweep."""
+    from lidarslam_tpu_torch.core import se3
+
+    xyz = frame["xyz"]
+    front = xyz[:, 0] >= 0
+    inv = se3.hmat_inverse(offset)
+    f0 = {k: frame[k][front] for k in ("xyz", "intensity", "laser_id", "time")}
+    f1 = {k: frame[k][~front] for k in ("intensity", "laser_id", "time")}
+    f1["xyz"] = (xyz[~front] @ inv[:3, :3].T + inv[:3, 3]).astype(np.float32)
+    f0.update(stamp=frame["stamp"], device_id=0)
+    f1.update(stamp=frame["stamp"] + 0.02, device_id=1)
+    return [f0, f1]
+
+
+@pytest.mark.cuda
+def test_cuda_rig_matches_cpu(cuda):
+    """A two-LiDAR rig (device 1 at a calibration offset, 20 ms later) on the
+    card against the CPU, through add_frames and through add_frames_async
+    + flush with a single sweep between acquisitions: each device's
+    extraction and the rig's step replay as CUDA graphs, the step's graph
+    sharing the segment's state with the sweep graph."""
+    from lidarslam_tpu_torch.core import se3
+
+    offset = se3.pose_to_hmat([0.5, 0.2, 0.1, 0.0, 0.0, 0.3])
+    cfg = _small_stream_cfg()
+    frames = synthetic.generate_sequence(
+        n_frames=8, motion_distortion=False, sensor=synthetic.SensorModel(range_noise=0.005))
+    runs = {}
+    for name, dev in (("gpu", cuda), ("cpu", "cpu")):
+        slam = Slam(cfg, device=dev)
+        slam.set_base_to_lidar_offset(1, offset)
+        runs[name + "_sync"] = [slam.add_frames(_split_rig(f, offset)) for f in frames]
+        slam = Slam(cfg, device=dev)
+        slam.set_base_to_lidar_offset(1, offset)
+        for i, f in enumerate(frames):
+            if i == 5:
+                slam.add_frame_async(f)
+            else:
+                slam.add_frames_async(_split_rig(f, offset))
+        runs[name + "_stream"] = slam.flush()
+        if dev == cuda:
+            assert slam._rig_graph.graph is not None
+            assert slam._rig_graph.state is slam._graph.state
+            assert all(g.graph is not None for g in slam._extract_graphs.values())
+    for path in ("_sync", "_stream"):
+        for a, b in zip(runs["gpu" + path], runs["cpu" + path]):
+            assert not a["failure"] and not b["failure"]
+            assert np.linalg.norm(a["pose"][:3, 3] - b["pose"][:3, 3]) < 0.01
+            assert abs(a["n_matches"] - b["n_matches"]) <= 0.01 * max(b["n_matches"], 1)
+
+
+@pytest.mark.cuda
+def test_cuda_float_wire_stream_matches_cpu(cuda):
+    """compress_upload=False on the card: the float sweeps go up as
+    FloatRecords and replay in their own graph, against the CPU's eager
+    float windows; one replay equals the eager step from the same state."""
+    cfg = _small_stream_cfg().replace(compress_upload=False)
+    frames = synthetic.generate_sequence(
+        n_frames=10, motion_distortion=False, sensor=synthetic.SensorModel(range_noise=0.005))
+    gpu = Slam(cfg, device=cuda)
+    rg = _stream(gpu, frames, None)
+    rc = _stream(Slam(cfg, device="cpu"), frames, None)
+    assert isinstance(gpu._graph.wire, stream_graph.FloatRecord)
+    assert gpu._graph.graph is not None
+    for a, b in zip(rg, rc):
+        assert not a["failure"] and not b["failure"]
+        assert np.linalg.norm(a["pose"][:3, 3] - b["pose"][:3, 3]) < 0.01
+        assert abs(a["n_matches"] - b["n_matches"]) <= 0.01 * max(b["n_matches"], 1)
+
+
+@pytest.mark.cuda
+def test_cuda_logged_keypoints_are_the_logs_own(cuda):
+    """A DEVICE-tier log entry of add_frame and of a replayed stream
+    sweep keeps its values while later frames and replays run."""
+    cfg = _small_stream_cfg()
+    frames = synthetic.generate_sequence(n_frames=12, motion_distortion=False)
+    slam = Slam(cfg, device=cuda)
+    slam.add_frame(frames[0])
+    slam.add_frame(frames[1])
+    for f in frames[2:7]:
+        slam.add_frame_async(f)
+    slam.flush()
+    kept = [(e, [t.clone() for t in e]) for e in
+            (slam.log_keypoints[1][k] for k in slam.cfg.used_types)]
+    views = [(e, e._buf.clone()) for e in
+             (slam.log_keypoints[6][k] for k in slam.cfg.used_types)]
+    for f in frames[7:]:
+        slam.add_frame_async(f)
+    slam.flush()
+    assert all(torch.equal(a, b) for e, c in kept for a, b in zip(e, c))
+    assert all(torch.equal(e._buf, c) for e, c in views)

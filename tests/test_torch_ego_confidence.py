@@ -27,6 +27,7 @@ from lidarslam_tpu.ops import frame as jframe
 from lidarslam_tpu.ops import matcher as jmatcher
 from lidarslam_tpu.ops import pipeline as jpipe
 from lidarslam_tpu.ops.voxel_map import SubmapView as JView
+from lidarslam_tpu_torch.io import native as tnative
 from lidarslam_tpu_torch import Slam as TSlam
 from lidarslam_tpu_torch import confidence as tconf
 from lidarslam_tpu_torch import state as tstate
@@ -245,8 +246,10 @@ def runs():
     jcfg = _full_jcfg()
     out = {"frames": frames, "cfg": _torch_config(jcfg)}
     with pytest.MonkeyPatch.context() as mp:
-        # the JAX package's numpy ingest: the port has no native ingest yet
+        # both packages on their numpy ingest: the native one rounds a few
+        # quantized coordinates differently (ROADMAP Queue 3, F5)
         mp.setattr(native, "available", lambda: False)
+        mp.setattr(tnative, "available", lambda: False)
         js = JSlam(jump_cfg)
         out["jax_jump"] = [js.add_frame(f) for f in jump]
         js = JSlam(jcfg)
@@ -264,9 +267,9 @@ def runs():
                                                js._map_cfgs_tuple, i == 0, ())
         out["carry_packed"] = np.asarray(packed)
         out["carry_wire"], out["az"] = planes, float(az)
-    ts = TSlam(_torch_config(jump_cfg), device="cpu")
-    out["torch_jump"] = [ts.add_frame(f) for f in jump]
-    out["torch_stream"] = _stream(TSlam(out["cfg"], device="cpu"), frames)
+        ts = TSlam(_torch_config(jump_cfg), device="cpu")
+        out["torch_jump"] = [ts.add_frame(f) for f in jump]
+        out["torch_stream"] = _stream(TSlam(out["cfg"], device="cpu"), frames)
     return out
 
 

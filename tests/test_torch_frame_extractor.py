@@ -13,6 +13,7 @@ from lidarslam_tpu.io import synthetic as jsyn
 from lidarslam_tpu.ops import extractor as jext
 from lidarslam_tpu.ops import frame as jframe
 from lidarslam_tpu.ops import prims as jprims
+from lidarslam_tpu_torch.io import native as tnative
 from lidarslam_tpu_torch.config import ExtractorConfig as TExtractorConfig
 from lidarslam_tpu_torch.ops import extractor as text
 from lidarslam_tpu_torch.ops import frame as tframe
@@ -21,9 +22,10 @@ from lidarslam_tpu_torch.ops import prims as tprims
 
 @pytest.fixture
 def numpy_ingest(monkeypatch):
-    """The JAX package's numpy ingest (its optional native C++ one rounds a
-    few quantized coordinates differently; the port has only numpy)."""
+    """Both packages on their numpy ingest (the native C++ one rounds a few
+    quantized coordinates differently, ROADMAP Queue 3, F5)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 def _sweep(rings, azimuth, seed):

@@ -27,7 +27,17 @@ from lidarslam_tpu_torch.state import stream_state_from_numpy
 # the sensor surface: constraints and the sensor CSV
 from lidarslam_tpu_torch.sensors.constraints import ImuManager, WheelOdometryManager
 from lidarslam_tpu_torch.io.sensor_csv import load_sensor_csv
+# native ingest, storage tiers, timers and profiling, multi-LiDAR
+from lidarslam_tpu_torch.io import lzf, native, octree, pcd, storage
+from lidarslam_tpu_torch.ops.frame import merge_keypoints, transform_keypoints
+from lidarslam_tpu_torch.ops.pipeline import process_keypoints_stream
+from lidarslam_tpu_torch.ops.stream_graph import FloatRecord, KeypointRecord
+from lidarslam_tpu_torch.utils import profiling, timer
+assert native.available(), native.last_error()
+assert lzf.decompress(lzf.compress(b"ab" * 64), 128) == b"ab" * 64
 assert callable(Slam.add_frame_async) and callable(Slam.flush)
+assert callable(Slam.add_frames) and callable(Slam.add_frames_async)
+assert callable(Slam.start_profiling) and callable(Slam.get_log_memory_usage)
 assert callable(Slam.set_sensor_data) and callable(load_sensor_csv)
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'lidarslam_tpu.'))

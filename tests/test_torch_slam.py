@@ -12,6 +12,7 @@ from lidarslam_tpu import Slam as JSlam
 from lidarslam_tpu.config import MatchingConfig as JMatching
 from lidarslam_tpu.io import native
 from lidarslam_tpu.io import synthetic as jsyn
+from lidarslam_tpu_torch.io import native as tnative
 from lidarslam_tpu_torch import Slam as TSlam
 from lidarslam_tpu_torch import config as tcfg
 from lidarslam_tpu_torch.core import se3
@@ -82,16 +83,18 @@ def runs():
                                     sensor=jsyn.SensorModel(range_noise=0.005))
     jcfg = small_config().replace(loc_matching=JMatching(reuse_knn=True))
     with pytest.MonkeyPatch.context() as mp:
-        # the JAX package's numpy ingest: the port has no native ingest yet
+        # both packages on their numpy ingest: the native one rounds a few
+        # quantized coordinates differently (ROADMAP Queue 3, F5)
         mp.setattr(native, "available", lambda: False)
+        mp.setattr(tnative, "available", lambda: False)
         js = JSlam(jcfg)
         jres, state = [], None
         for i, f in enumerate(frames):
             jres.append(js.add_frame(f))
             if i == STATE_AFTER:
                 state = _jax_state(js)
-    ts = TSlam(_torch_config(jcfg), device="cpu")
-    tres = [ts.add_frame(f) for f in frames]
+        ts = TSlam(_torch_config(jcfg), device="cpu")
+        tres = [ts.add_frame(f) for f in frames]
     return frames, jres, tres, state, _torch_config(jcfg)
 
 
@@ -156,7 +159,7 @@ def test_map_points_and_getters(runs):
     assert ts.add_frame(frames[2]) == {"skipped": "duplicate stamp"}
 
 
-def test_map_overflow_tracked_after_insert(runs, capsys):
+def test_map_overflow_tracked_after_insert(runs, capsys, monkeypatch):
     """Maps too small for one sweep: the tracker holds the count after each
     frame's insert (as the JAX package's does) and warns when it grows."""
     frames, *_ = runs
@@ -164,10 +167,11 @@ def test_map_overflow_tracked_after_insert(runs, capsys):
         edge_map=dataclasses.replace(small_config().edge_map, capacity=256),
         plane_map=dataclasses.replace(small_config().plane_map, capacity=256),
         verbosity=1)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        js = JSlam(jcfg)
-        js.add_frame(frames[0])
+    # both packages on their numpy ingest (ROADMAP Queue 3, F5)
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
+    js = JSlam(jcfg)
+    js.add_frame(frames[0])
     ts = TSlam(_torch_config(jcfg), device="cpu")
     ts.add_frame(frames[0])
     assert ts.map_overflow[int(tcfg.Keypoint.PLANE)] > 0
@@ -182,6 +186,11 @@ def test_map_overflow_tracked_after_insert(runs, capsys):
             assert "map dropped" in capsys.readouterr().out
 
 
-def test_slam_needs_a_device():
-    with pytest.raises(TypeError, match="device"):
-        TSlam(tcfg.SlamConfig())
+def test_slam_needs_a_device(monkeypatch):
+    """The entry point runs on the card unless asked for another device:
+    with no CUDA device and none named, construction raises (no quiet CPU)."""
+    cfg = _torch_config(small_config())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        TSlam(cfg)
+    assert TSlam(cfg, device="cpu").device.type == "cpu"

@@ -21,6 +21,7 @@ from lidarslam_tpu.io import synthetic as jsyn
 from lidarslam_tpu.ops import frame as jframe
 from lidarslam_tpu.ops import pipeline as jpipe
 from lidarslam_tpu.ops import undistortion as jund
+from lidarslam_tpu_torch.io import native as tnative
 from lidarslam_tpu_torch import Slam as TSlam
 from lidarslam_tpu_torch import state as tstate
 from lidarslam_tpu_torch.config import Keypoint as TKeypoint
@@ -74,8 +75,10 @@ def runs():
     jcfg = _jcfg()
     out = {"frames": frames, "cfg": _torch_config(jcfg)}
     with pytest.MonkeyPatch.context() as mp:
-        # the JAX package's numpy ingest: the port has no native ingest yet
+        # both packages on their numpy ingest: the native one rounds a few
+        # quantized coordinates differently (ROADMAP Queue 3, F5)
         mp.setattr(native, "available", lambda: False)
+        mp.setattr(tnative, "available", lambda: False)
         js = JSlam(jcfg)
         out["jax"] = _stream(js, frames)
         out["jax_kf"] = js.kf_counter
@@ -98,12 +101,12 @@ def runs():
                                                js._map_cfgs_tuple, i == 0, ())
         out["carry_packed"] = np.asarray(packed)
         out["carry_wire"], out["az"] = wires[-1], float(az)
-    ts = TSlam(out["cfg"], device="cpu")
-    out["torch"] = _stream(ts, frames)
-    out["torch_kf"] = ts.kf_counter
-    out["torch_slam"] = ts
-    out["torch_partial"] = _stream(TSlam(out["cfg"], device="cpu"), frames, split=4)
-    out["torch_seeded"] = _stream(TSlam(out["cfg"], device="cpu"), frames, sync_first=2)
+        ts = TSlam(out["cfg"], device="cpu")
+        out["torch"] = _stream(ts, frames)
+        out["torch_kf"] = ts.kf_counter
+        out["torch_slam"] = ts
+        out["torch_partial"] = _stream(TSlam(out["cfg"], device="cpu"), frames, split=4)
+        out["torch_seeded"] = _stream(TSlam(out["cfg"], device="cpu"), frames, sync_first=2)
     return out
 
 
@@ -132,7 +135,9 @@ def test_stream_keyframes_logs_and_maps(runs):
     ts = runs["torch_slam"]
     assert runs["torch_kf"] == runs["jax_kf"] > 1
     assert len(ts.get_trajectory()) == N_FRAMES
-    assert not hasattr(ts, "log_keypoints")        # keypoint logs are not ported
+    # every flushed frame logs its keypoints (logging_timeout=-1, DEVICE tier)
+    assert len(ts.log_keypoints) == N_FRAMES
+    assert all(sorted(e) == [TKeypoint.EDGE, TKeypoint.PLANE] for e in ts.log_keypoints)
     for k in (TKeypoint.EDGE, TKeypoint.PLANE):
         kv = ts.current_keypoints[k]
         n = int(kv.count)
@@ -193,11 +198,13 @@ def test_stream_state_carry_steps_like_jax(runs):
 
 def _planes(frame, both=True):
     args = (frame["xyz"], frame["intensity"], frame["laser_id"], frame["time"], 16, 1024)
-    t = tframe.build_range_image(*args, packed=True, device=False)
-    if not both:
-        return t
     with pytest.MonkeyPatch.context() as mp:
+        # both packages on their numpy ingest (ROADMAP Queue 3, F5)
         mp.setattr(native, "available", lambda: False)
+        mp.setattr(tnative, "available", lambda: False)
+        t = tframe.build_range_image(*args, packed=True, device=False)
+        if not both:
+            return t
         j = jframe.build_range_image(*args, packed=True, device=False)
     return t, j
 
@@ -447,6 +454,11 @@ def test_add_frame_next_frame_prefetch_is_identical(runs):
     dict(compress_upload=False),
 ])
 def test_stream_unported_options_raise(runs, change):
+    """The stream refuses no single-LiDAR option any more:
+    compress_upload=False, which raised NotImplementedError before the float
+    window was ported, streams (tests/test_torch_native.py holds it against
+    JAX)."""
     slam = TSlam(dataclasses.replace(runs["cfg"], **change), device="cpu")
-    with pytest.raises(NotImplementedError):
-        slam.add_frame_async(runs["frames"][0])
+    assert [slam.add_frame_async(f) for f in runs["frames"][:2]] == [0, 1]
+    out = slam.flush()
+    assert len(out) == 2 and not any(o["failure"] for o in out)

@@ -19,6 +19,7 @@ from lidarslam_tpu.io import synthetic as jsyn
 from lidarslam_tpu.ops import icp as jicp
 from lidarslam_tpu.ops import undistortion as jund
 from lidarslam_tpu.ops.voxel_map import SubmapView as JView
+from lidarslam_tpu_torch.io import native as tnative
 from lidarslam_tpu_torch import Slam as TSlam
 from lidarslam_tpu_torch.config import Keypoint as TKeypoint
 from lidarslam_tpu_torch.config import MatchingConfig as TMatching
@@ -215,11 +216,13 @@ def test_distorted_add_frame_matches_jax(mode):
     jcfg = small_config().replace(loc_matching=JMatching(reuse_knn=True),
                                   undistortion=JUndistortion[mode])
     with pytest.MonkeyPatch.context() as mp:
+        # both packages on their numpy ingest (ROADMAP Queue 3, F5)
         mp.setattr(native, "available", lambda: False)
+        mp.setattr(tnative, "available", lambda: False)
         js = JSlam(jcfg)
         jres = [js.add_frame(f) for f in frames]
-    ts = TSlam(_torch_config(jcfg), device="cpu")
-    tres = [ts.add_frame(f) for f in frames]
+        ts = TSlam(_torch_config(jcfg), device="cpu")
+        tres = [ts.add_frame(f) for f in frames]
     for i, (t, j) in enumerate(zip(tres, jres)):
         dt, dr = _pose_err(t["pose"], j["pose"])
         assert dt < CI_M and dr < CI_DEG, (i, dt, dr)
