@@ -105,11 +105,34 @@ the CUDA toolkit. Phases, each printed as it goes:
    acquisitions profiled through `Slam.start_profiling` /
    `stop_profiling` and read back from the trace file (10 executions of
    each k-NN kernel per acquisition), the keypoint log's bytes, and each
-   k-NN call shape of the step against the plain version.
+   k-NN call shape of the step against the plain version;
+9. the back end and the state surface: the float64 pose-graph solver on a
+   1000-pose graph (`pgo_graph`: a 100 s drive at 10 Hz with GPS every
+   fifth pose), the block-LDL loop and Schur over 8 segments on the card
+   against the numpy oracle (within 1e-5 m), each timed (median of 5 after
+   a warm-up) beside the oracle; `run_pose_graph_optimization` on phase
+   6's synchronous drive with GPS from the ground truth (REFINED replay,
+   the maps rebuilt on the card) against vlp16_pgo_ref.npz (poses within
+   0.01 m / 5 deg, map slots within 1%, the error against the ground
+   truth at most JAX's + 0.01 m), and JAX's logged poses and covariances
+   through the port's solver (within 1e-5 m of JAX's result); phase 6's
+   checkpoint after 15 sweeps loaded into a fresh Slam and continued
+   (within 5e-3 m of the uninterrupted run); the maps through
+   `save_maps_to_pcd` / `load_maps_from_pcd` (the same points); a stream
+   of 20 sweeps, `execute_command(GPS_SLAM_POSE_GRAPH_OPTIMIZATION)`, and
+   the next segment: its captured graph's buffers re-seeded in place from
+   the rebuilt maps, one replay against the eager step, a window of 8
+   replays with 0 failed.
 
-Phases 4-7 pin the port's host ingest to numpy (`numpy_ingest`), on which
-their JAX references were made; phase 5's native runs and phase 8 take the
-native ingest.
+Phases 4-7 and 9 pin the port's host ingest to numpy (`numpy_ingest`), on
+which their JAX references were made; phase 5's native runs and phase 8
+take the native ingest.
+
+Every count of k-NN kernel executions above is the kernels' own, kept on
+the device (`cuda_knn.executions`) and reset just before the profiled
+work; the profiler's trace, which can lose records when a frame runs tens
+of thousands of small kernels, must show each k-NN kernel and never more
+often than the device counted it.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero before printing a result.
@@ -124,6 +147,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -147,7 +171,7 @@ SLOW_CALL_MS = 50.0         # _median_ms times slower calls 5 times, not 20
 FP32_OPS_PER_S = 33.5e12
 HBM_BYTES_PER_S = 3.35e12
 # the k-NN's kernels (csrc/knn.cu), each launched once per wrapper call
-KNN_KERNELS = ("knn_plan", "knn_prefix", "knn_scan", "knn_merge")
+KNN_KERNELS = ("knn_plan", "knn_prefix", "knn_scan", "knn_merge")  # cuda_knn.KERNELS
 # the reference CI's per-pose tolerance (io/csv_log.py) and the simulator
 # ground-truth bounds of tests/test_slam_e2e.py
 REF_TOL_M, REF_TOL_DEG = 0.01, 5.0
@@ -727,18 +751,27 @@ def _profile(fn, n_frames: int):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from lidarslam_tpu_torch.ops import cuda_knn
+
     torch.cuda.synchronize()
+    cuda_knn.reset_executions()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return _readings(prof, n_frames)
+    return _readings(prof, n_frames, cuda_knn.executions())
 
 
-def _readings(source, n_frames: int):
-    """From a torch.profiler profile or its Chrome trace (utils/profiling.py):
-    device busy ms/frame, device kernels/frame (copies and memsets
-    excluded), executions of each k-NN kernel, and the k-NN kernels' device
-    ms/frame (every device kernel named knn_*)."""
+def _readings(source, n_frames: int, executed: dict):
+    """From a torch.profiler profile or its Chrome trace (utils/profiling.py)
+    and the k-NN kernels' device execution counts over the same work
+    (`cuda_knn.executions`): device busy ms/frame, device kernels/frame
+    (copies and memsets excluded), executions of each k-NN kernel as the
+    kernels counted them (`knn`) and as the trace recorded them
+    (`knn_traced`), and the k-NN kernels' device ms/frame (every device
+    kernel named knn_*). A trace can lose records when the device runs tens
+    of thousands of small kernels a frame, so the exact counts come from
+    the device; the trace must still show each kernel, and never more
+    often than it ran."""
     from lidarslam_tpu_torch.utils import profiling
 
     _, cnt, cat = profiling.op_totals(source)
@@ -747,8 +780,12 @@ def _readings(source, n_frames: int):
                   if profiling.category(name) not in ("memcpy", "memset"))
     if busy_ms <= 0 or kernels == 0:
         raise AssertionError("torch.profiler saw no device time")
+    traced = {k: sum(n for name, n in cnt.items() if k in name) for k in KNN_KERNELS}
+    _require(all(0 < traced[k] <= executed[k] for k in KNN_KERNELS),
+             f"the trace's k-NN kernel executions {traced} are not within the "
+             f"device's counts {executed}")
     return {"busy_ms": busy_ms / n_frames, "kernels": kernels / n_frames,
-            "knn": {k: sum(n for name, n in cnt.items() if k in name) for k in KNN_KERNELS},
+            "knn": dict(executed), "knn_traced": traced,
             "knn_ms": cat["knn"] / n_frames}
 
 
@@ -865,7 +902,8 @@ def phase_slice(frames):
           f"{len(rounds)} ICP rounds run of "
           f"{slam.cfg.localization_icp_max_iter * len(PROFILED)}; k-NN kernels "
           f"{prof['knn_ms']:.4f} ms/frame ({100 * prof['knn_ms'] / prof['busy_ms']:.2f}% "
-          f"of device busy), executions {prof['knn']}", flush=True)
+          f"of device busy), executions {prof['knn']} (device counts; traced"
+          f" {prof['knn_traced']})", flush=True)
     return {"launches": launches, "ms_frame": ms_frame, **prof}
 
 
@@ -957,7 +995,8 @@ def phase_stream(frames, card: str, sync: dict):
     prof = _profile(lambda: [slam.add_frame_async(frames[i]) for i in window], WINDOW)
     _check_knn_executions("stream", prof, WINDOW)
     print(f"[stream] profiled window of {WINDOW} replays (frames {window.start}-"
-          f"{window.stop - 1}): k-NN kernel executions {prof['knn']} (2 per frame "
+          f"{window.stop - 1}): k-NN kernel executions {prof['knn']} (device counts; traced"
+          f" {prof['knn_traced']}) (2 per frame "
           f"each); device busy {prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} "
           f"device kernels/frame; k-NN kernels {prof['knn_ms']:.4f} ms/frame "
           f"({100 * prof['knn_ms'] / prof['busy_ms']:.2f}% of device busy)", flush=True)
@@ -999,11 +1038,15 @@ def _replay_vs_eager(tag, g, record, step, cfg, map_cfgs, path_calls=None):
 
     from lidarslam_tpu_torch.core import se3
     from lidarslam_tpu_torch.ops import pipeline
+    from lidarslam_tpu_torch.ops.frame import FlatRangeImage
     from lidarslam_tpu_torch.ops.stream_graph import clone_tree
 
     g.record.copy_(record)
     inp, stamp, _ = g.wire.unpack(g.record)
-    inp = clone_tree(inp)
+    if isinstance(inp, FlatRangeImage):     # the flat wire's planes
+        inp = FlatRangeImage(*(getattr(inp, f).clone() for f in inp.FIELDS), inp.shape)
+    else:
+        inp = clone_tree(inp)
     stamp = stamp.clone()
     before = clone_tree(g.state)
     torch.cuda.synchronize()
@@ -1232,12 +1275,14 @@ def _ref_gt_error(frames, ref):
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
-def phase_full(card: str, frames):
+def phase_full(card: str, frames, ckpt_dir: Path):
     """`frames` (30 sweeps rendered with motion distortion) at full_config
     through add_frame and through add_frame_async + flush, each held against
     its JAX reference; the stream's sync-free step, replay == eager, the k-NN
     executions per replayed frame, and each k-NN call shape of the path on
-    its own inputs."""
+    its own inputs. The add_frame run writes phase 9's checkpoint into
+    `ckpt_dir` after CKPT_AT sweeps (outside its timings) and is returned
+    with its results for phase 9's PGO."""
     import dataclasses
 
     import numpy as np
@@ -1259,7 +1304,9 @@ def phase_full(card: str, frames):
     results, wall = [], []
 
     def run_sync():
-        for f in frames:
+        for i, f in enumerate(frames):
+            if i == CKPT_AT:
+                slam.save_checkpoint(str(ckpt_dir / "full_sync.npz"))
             t1 = time.perf_counter()
             results.append(slam.add_frame(f))
             torch.cuda.synchronize()
@@ -1285,6 +1332,7 @@ def phase_full(card: str, frames):
           f"reference's own: {ref_gt[0]:.3e} m / {ref_gt[1]:.3e} deg)", flush=True)
     if sync_launches == 0:
         raise AssertionError("[full] the sync path launched no k-NN kernel")
+    sync_slam, sync_results = slam, list(results)
 
     slam = Slam(cfg, device="cuda")
     for f in frames[:PROFILED.start]:
@@ -1297,7 +1345,8 @@ def phase_full(card: str, frames):
     sync_prof = {**prof, "ms_frame": sync_ms}
     print(f"[full] sync profiled frames {PROFILED.start}-{PROFILED.stop - 1}: device busy "
           f"{prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} device kernels/frame, "
-          f"k-NN executions {prof['knn']} ({cuda_knn.LAUNCHES / len(PROFILED):.2f} calls "
+          f"k-NN executions {prof['knn']} (device counts; traced"
+          f" {prof['knn_traced']}) ({cuda_knn.LAUNCHES / len(PROFILED):.2f} calls "
           f"per frame; the ego ICP exits early on a host read), k-NN {prof['knn_ms']:.4f} "
           f"ms/frame", flush=True)
 
@@ -1371,7 +1420,8 @@ def phase_full(card: str, frames):
                              f"(expected {len(FULL_CALLS)} per frame each)")
     slam.flush()
     print(f"[full] profiled window of {WINDOW} replays (frames {window.start}-"
-          f"{window.stop - 1}): k-NN executions {prof['knn']} ({len(FULL_CALLS)} per frame "
+          f"{window.stop - 1}): k-NN executions {prof['knn']} (device counts; traced"
+          f" {prof['knn_traced']}) ({len(FULL_CALLS)} per frame "
           f"each); device busy {prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} device "
           f"kernels/frame; k-NN {prof['knn_ms']:.4f} ms/frame "
           f"({100 * prof['knn_ms'] / prof['busy_ms']:.2f}% of device busy)", flush=True)
@@ -1417,7 +1467,236 @@ def phase_full(card: str, frames):
             "stream_calls": calls, "stream_executions": prof["knn"],
             "stream_knn_ms": prof["knn_ms"], "sync_knn_ms": sync_prof["knn_ms"],
             "shapes": shapes, "per_frame": per_frame,
-            "max_abs_err": max(s_["max_abs_err"] for s_ in shapes)}
+            "max_abs_err": max(s_["max_abs_err"] for s_ in shapes),
+            "sync_slam": sync_slam, "sync_results": sync_results}
+
+
+PGO_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_pgo_ref.npz"
+PGO_POSES = 1000            # the solver's graph: a 100 s drive at 10 Hz
+PGO_SEGMENTS = 8
+PGO_SOLVE_M = 1e-5          # both solver forms against the numpy oracle [m]
+PGO_INPUTS_M = 1e-5         # JAX's logged inputs against JAX's optimized poses [m]
+PGO_GT_SLACK_M = 0.01       # the drive's error against the ground truth over JAX's
+CKPT_AT = 15                # phase 6's sync run writes its checkpoint after 15 sweeps
+CKPT_M = 5e-3               # tests/test_mapping_modes.py::test_checkpoint_roundtrip's
+PGO_CMD_AT = 20             # the stream's PGO command after this many sweeps
+
+
+def pgo_graph(n: int, seed: int = 7):
+    """A drifting 10 Hz odometry chain of n poses (1 m and 0.02 rad a step,
+    2 cm and 2 mrad of noise) with a GPS fix at every fifth pose (1 cm of
+    noise): the recipe of tests/test_posegraph_device.py::_make_graph.
+    Returns (poses, times, covariances, gps positions, gps times, ground
+    truth)."""
+    import numpy as np
+
+    from lidarslam_tpu_torch.core import se3
+
+    rng = np.random.default_rng(seed)
+    gt, noisy = [np.eye(4)], [np.eye(4)]
+    for _ in range(1, n):
+        step = np.eye(4)
+        step[:3, :3] = se3.so3_exp([0, 0, 0.02])
+        step[0, 3] = 1.0
+        gt.append(gt[-1] @ step)
+        nstep = step.copy()
+        nstep[:3, 3] += rng.normal(0, 0.02, 3)
+        nstep[:3, :3] = nstep[:3, :3] @ se3.so3_exp(rng.normal(0, 0.002, 3))
+        noisy.append(noisy[-1] @ nstep)
+    times = np.arange(n) * 0.1
+    gps = np.stack([gt[i][:3, 3] for i in range(0, n, 5)])
+    gps = gps + rng.normal(0, 0.01, gps.shape)
+    return noisy, times, [np.eye(6) * 1e-3] * n, gps, times[::5], gt
+
+
+def _wall_median_ms(fn, reps=5):
+    """Median wall ms of `reps` calls of `fn` (each ending in a host read)
+    after one warm-up call; returns (ms, the last call's result)."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(1000 * (time.perf_counter() - t0))
+    return statistics.median(times), out
+
+
+def _max_position_diff(a, b) -> float:
+    import numpy as np
+
+    return max(float(np.abs(np.asarray(x)[:3, 3] - np.asarray(y)[:3, 3]).max())
+               for x, y in zip(a, b))
+
+
+def _max_rotation_diff(a, b) -> float:
+    import numpy as np
+
+    return max(float(np.abs(np.asarray(x)[:3, :3] - np.asarray(y)[:3, :3]).max())
+               for x, y in zip(a, b))
+
+
+def _gt_positions(frames):
+    import numpy as np
+
+    from lidarslam_tpu_torch.core import se3
+
+    gt0 = se3.hmat_inverse(frames[0]["gt_pose"])
+    return np.stack([(gt0 @ f["gt_pose"])[:3, 3] for f in frames])
+
+
+def phase_pgo(card: str, frames, full: dict, ckpt_dir: Path):
+    """The back end and the state surface on the card: the float64 PGO
+    solver at PGO_POSES poses (loop and Schur against the numpy oracle,
+    timed); `run_pose_graph_optimization` on phase 6's synchronous drive
+    against vlp16_pgo_ref.npz, and JAX's own logged inputs through the
+    port's solver; phase 6's checkpoint continued in a fresh Slam; the maps
+    through PCD; a stream after the PGO command (replay == eager)."""
+    import numpy as np
+    import torch
+
+    from lidarslam_tpu_torch import Slam
+    from lidarslam_tpu_torch.backend import posegraph
+    from lidarslam_tpu_torch.backend.posegraph_device import optimize_pose_graph_device
+    from lidarslam_tpu_torch.core import se3
+    from lidarslam_tpu_torch.ops import pipeline
+    from lidarslam_tpu_torch.ops.frame import build_range_image, flatten_packed
+
+    out = {}
+    # ---- the solver at a realistic size
+    noisy, times, covs, gps, gps_t, gt = pgo_graph(PGO_POSES)
+    kw = dict(gps_positions=gps, gps_times=gps_t)
+    oracle_ms, oracle = _wall_median_ms(
+        lambda: posegraph.optimize_pose_graph(noisy, times, covs, **kw))
+    for name, segments in (("scan", 0), ("schur", PGO_SEGMENTS)):
+        ms, (poses, cost) = _wall_median_ms(lambda: optimize_pose_graph_device(
+            noisy, times, covs, **kw, n_segments=segments, device="cuda"))
+        d = _max_position_diff(poses, oracle[0])
+        _require(d <= PGO_SOLVE_M and np.isfinite(cost),
+                 f"[pgo] {name}: {d:.3e} m from the numpy oracle (limit {PGO_SOLVE_M})")
+        out[name + "_ms"], out[name + "_m"] = ms, d
+    err = max(np.linalg.norm(p[:3, 3] - g[:3, 3]) for p, g in zip(oracle[0], gt))
+    print(f"[pgo] {card}: {PGO_POSES}-pose graph (float64, {len(gps)} GPS fixes), median of "
+          f"5 solves after one warm-up: scan {out['scan_ms']:.1f} ms, schur "
+          f"({PGO_SEGMENTS} segments) {out['schur_ms']:.1f} ms on the card, numpy oracle "
+          f"{oracle_ms:.1f} ms on the host; from the oracle: scan {out['scan_m']:.3e} m, "
+          f"schur {out['schur_m']:.3e} m; oracle from ground truth {err:.3e} m", flush=True)
+    out["numpy_ms"] = oracle_ms
+
+    # ---- run_pose_graph_optimization on phase 6's synchronous drive
+    ref = np.load(PGO_REF_PATH)
+    slam = full["sync_slam"]
+    gps = _gt_positions(frames)
+    log_times = np.array([e["time"] for e in slam.log_trajectory])
+    _require(np.array_equal(log_times, ref["times"]), "[pgo] the drive's stamps are not "
+             "the reference's")
+    t0 = time.perf_counter()
+    _require(slam.run_pose_graph_optimization(gps, log_times, use_device_backend=True),
+             "[pgo] run_pose_graph_optimization failed")
+    torch.cuda.synchronize()
+    pgo_ms = 1000 * (time.perf_counter() - t0)
+    after = [e["pose"] for e in slam.log_trajectory]
+    worst = (0.0, 0.0)
+    for i, (a, b) in enumerate(zip(after, ref["poses_after"])):
+        e = pose_errors(a, b)
+        worst = tuple(max(x, y) for x, y in zip(worst, e))
+        _require(e[0] <= REF_TOL_M and e[1] <= REF_TOL_DEG,
+                 f"[pgo] frame {i}: {e} from JAX's optimized pose")
+    valid = [len(slam.get_map_points(k)[0]) if k in slam.maps else 0 for k in range(3)]
+    for k, (n, m) in enumerate(zip(valid, ref["map_valid"])):
+        _require(abs(n - int(m)) <= 0.01 * int(m), f"[pgo] map {k}: {n} valid slots, JAX {m}")
+    gt_err = max(float(np.linalg.norm(p[:3, 3] - g)) for p, g in zip(after, gps))
+    gt_err_jax = max(float(np.linalg.norm(p[:3, 3] - g))
+                     for p, g in zip(ref["poses_after"], gps))
+    _require(gt_err <= gt_err_jax + PGO_GT_SLACK_M,
+             f"[pgo] {gt_err:.3e} m from ground truth, JAX {gt_err_jax:.3e} m")
+    print(f"[pgo] drive: {len(after)} poses optimized and 3 maps rebuilt on the card in "
+          f"{pgo_ms:.1f} ms; from JAX's optimized poses {worst[0]:.3e} m / {worst[1]:.3e} "
+          f"deg; map slots {valid} (JAX {ref['map_valid'].tolist()}); from ground truth "
+          f"{gt_err:.3e} m (JAX {gt_err_jax:.3e} m) ({card})", flush=True)
+    out.update(drive_m=worst[0], drive_deg=worst[1], gt_m=gt_err, gt_jax_m=gt_err_jax,
+               drive_ms=pgo_ms)
+    # JAX's logged inputs through the port's solver
+    poses, _ = optimize_pose_graph_device(
+        list(ref["poses_before"]), ref["times"], list(ref["covariances"]),
+        gps_positions=ref["gps"], gps_times=ref["times"], device="cuda")
+    anchor = se3.hmat_inverse(poses[0])
+    poses = [anchor @ p for p in poses]
+    d, dr = _max_position_diff(poses, ref["poses_after"]), \
+        _max_rotation_diff(poses, ref["poses_after"])
+    _require(d <= PGO_INPUTS_M and dr <= PGO_INPUTS_M,
+             f"[pgo] JAX's inputs: {d:.3e} m / {dr:.3e} from JAX's optimized poses")
+    print(f"[pgo] JAX's logged poses and covariances through the port's solver on the card: "
+          f"{d:.3e} m (rotation entries {dr:.3e}) from JAX's optimized poses", flush=True)
+    out["inputs_m"] = d
+
+    # ---- phase 6's checkpoint continued in a fresh Slam
+    cfg = full_config()
+    b = Slam(cfg, device="cuda")
+    b.load_checkpoint(str(ckpt_dir / "full_sync.npz"))
+    _require(b.n_frames == CKPT_AT and b._stream_state is None,
+             f"[pgo] checkpoint: {b.n_frames} frames")
+    cont = [b.add_frame(f) for f in frames[CKPT_AT:]]
+    d = max(pose_errors(r["pose"], w["pose"])[0]
+            for r, w in zip(cont, full["sync_results"][CKPT_AT:]))
+    _require(d <= CKPT_M and not any(r["failure"] for r in cont),
+             f"[pgo] checkpoint continuation {d:.3e} m from the uninterrupted run")
+    print(f"[pgo] checkpoint after {CKPT_AT} sweeps, loaded into a fresh Slam on the card and "
+          f"continued over {len(cont)}: {d:.3e} m from the uninterrupted run (limit "
+          f"{CKPT_M}; JAX's own resume, from the reference: {ref['resume_m'][0]:.3e} m from its "
+          f"checkpoint as loaded, {ref['resume_m'][1]:.3e} m with the previous keypoints "
+          f"restored, which the port's checkpoint carries: ROADMAP D7)", flush=True)
+    out["ckpt_m"] = d
+    # the maps through PCD
+    prefix = str(ckpt_dir / "map_")
+    b.save_maps_to_pcd(prefix)
+    c = Slam(cfg, device="cuda")
+    c.load_maps_from_pcd(prefix)
+    for k in cfg.used_types:
+        x = b.get_map_points(k)[0]
+        y = c.get_map_points(k)[0]
+        x, y = x[np.lexsort(x.T)], y[np.lexsort(y.T)]
+        _require(x.shape == y.shape and np.array_equal(x, y),
+                 f"[pgo] {k.name} map through PCD: {len(y)} points, saved {len(x)}")
+    print(f"[pgo] maps through save_maps_to_pcd / load_maps_from_pcd: the same valid points "
+          f"({[len(b.get_map_points(k)[0]) for k in cfg.used_types]})", flush=True)
+
+    # ---- a stream after the PGO command, seeded into the captured graph
+    s = Slam(cfg, device="cuda")
+    for f in frames[:PGO_CMD_AT]:
+        s.add_frame_async(f)
+    g = s._graph
+    _require(g is not None and g.graph is not None, "[pgo] the stream captured no graph")
+    ptr = g.state.maps[1].xyz.data_ptr()
+    gps = _gt_positions(frames[:PGO_CMD_AT])
+    _require(s.execute_command(Slam.GPS_SLAM_POSE_GRAPH_OPTIMIZATION, gps_positions=gps,
+                               gps_times=[f["stamp"] for f in frames[:PGO_CMD_AT]],
+                               use_device_backend=True) is True, "[pgo] the command failed")
+    _require(s.n_frames == PGO_CMD_AT and s._stream_state is None,
+             "[pgo] the command did not flush the stream")
+    s.add_frame_async(frames[PGO_CMD_AT])          # the segment's first sweep, seeded
+    f = frames[PGO_CMD_AT + 1]
+    host = build_range_image(f["xyz"], f["intensity"], f["laser_id"], f["time"],
+                             cfg.extractor.n_rings, cfg.extractor.max_ring_points,
+                             packed=True, device=False)
+    record = g.wire.pack([flatten_packed(host, g.wire.capacity)],
+                         [np.float32(f["stamp"])]).to("cuda")[0]
+    dt, dr, total = _replay_vs_eager("pgo", g, record, pipeline.process_frame_stream, cfg,
+                                     s._map_cfgs_tuple)
+    window = frames[PGO_CMD_AT + 2:PGO_CMD_AT + 2 + WINDOW]
+    _require(len(window) == WINDOW, "[pgo] too few sweeps for a window after the command")
+    for f in window:
+        s.add_frame_async(f)
+    outs = s.flush()
+    n_failed = sum(bool(o["failure"]) for o in outs)
+    _require(s._graph is g and g.state.maps[1].xyz.data_ptr() == ptr,
+             "[pgo] the graph or its buffers were replaced after the PGO")
+    _require(len(outs) == 1 + WINDOW and n_failed == 0,
+             f"[pgo] stream after the PGO: {n_failed} of {len(outs)} failed")
+    print(f"[pgo] stream after GPS_SLAM_POSE_GRAPH_OPTIMIZATION at sweep {PGO_CMD_AT}: the "
+          f"captured graph's buffers re-seeded in place; replay vs eager {dt:.3e} m / "
+          f"{dr:.3e} deg ({total} matches); a window of {WINDOW} replays, 0 failed, min "
+          f"n_matches {min(o['n_matches'] for o in outs)}", flush=True)
+    return out
 
 
 EXT_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_ext_ref.npz"
@@ -1779,7 +2058,8 @@ def phase_ext(card: str, frames):
              f"{len(EXT_CALLS)} per frame each)")
     slam.flush()
     print(f"[ext] profiled a window of {WINDOW} replays (frames {window.start}-"
-          f"{window.stop - 1}): k-NN executions {prof['knn']} ({len(EXT_CALLS)} per frame "
+          f"{window.stop - 1}): k-NN executions {prof['knn']} (device counts; traced"
+          f" {prof['knn_traced']}) ({len(EXT_CALLS)} per frame "
           f"each); device busy {prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} device "
           f"kernels/frame; k-NN {prof['knn_ms']:.4f} ms/frame "
           f"({100 * prof['knn_ms'] / prof['busy_ms']:.2f}% of device busy)", flush=True)
@@ -1976,19 +2256,21 @@ def phase_rig(card: str):
     window = range(PROFILED.start + 2, PROFILED.start + 2 + RIG_PROFILED)
     with tempfile.TemporaryDirectory() as d:
         torch.cuda.synchronize()
+        cuda_knn.reset_executions()
         slam.start_profiling(d)
         for i in window:
             slam.add_frames_async(acq[i])
         path = slam.stop_profiling()
         _require(profiling.find_trace(d) == path, "[rig] stop_profiling wrote no trace")
-        prof = _readings(path, RIG_PROFILED)
+        prof = _readings(path, RIG_PROFILED, cuda_knn.executions())
     slam.flush()
     _require(all(n == len(RIG_CALLS) * RIG_PROFILED for n in prof["knn"].values()),
              f"[rig] k-NN executions {prof['knn']} in {RIG_PROFILED} acquisitions (expected "
              f"{len(RIG_CALLS)} per acquisition each)")
     print(f"[rig] profiled {RIG_PROFILED} acquisitions ({window.start}-{window.stop - 1}) through "
           f"Slam.start_profiling / stop_profiling, read from the trace file: k-NN "
-          f"executions {prof['knn']} ({len(RIG_CALLS)} per acquisition each); device busy "
+          f"executions {prof['knn']} (device counts; traced"
+          f" {prof['knn_traced']}) ({len(RIG_CALLS)} per acquisition each); device busy "
           f"{prof['busy_ms']:.2f} ms/acquisition, {prof['kernels']:.1f} device kernels/"
           f"acquisition (a replay per device's extraction, the merge, a replay of the "
           f"step); "
@@ -2057,13 +2339,18 @@ def main() -> int:
     distorted = render_frames(N_FRAMES, motion_distortion=True)
     print(f"[full] rendered {len(distorted)} VLP-16 sweeps with motion distortion in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    with numpy_ingest():
-        full = phase_full(card, distorted)
-        done(6)
-        ext = phase_ext(card, distorted)
-        done(7)
-    rig = phase_rig(card)
-    done(8)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = Path(tmp)
+        with numpy_ingest():
+            full = phase_full(card, distorted, ckpt_dir)
+            done(6)
+            ext = phase_ext(card, distorted)
+            done(7)
+        rig = phase_rig(card)
+        done(8)
+        with numpy_ingest():    # vlp16_pgo_ref.npz, as phase 6's, on the numpy ingest
+            phase_pgo(card, distorted, full, ckpt_dir)
+            done(9)
     pf = ext["per_frame"]
     # what sets the per-frame bound: the side holding most of it
     by_ops = sum(s["bound_ms"] * s["calls_per_frame"] for s in ext["shapes"]

@@ -134,12 +134,120 @@ def interpolate_hmat(H0, H1, t, t0=0.0, t1=1.0):
     H1 = _np.asarray(H1, dtype=_np.float64)
     if abs(t1 - t0) < 1e-12 or _np.allclose(H0, H1, atol=1e-12):
         return H0.copy()
-    u = (_np.float64(t) - t0) / (t1 - t0)
-    q = _quat_slerp(_quat_from_matrix(H0[:3, :3]), _quat_from_matrix(H1[:3, :3]), u)
+    R, tv = interpolate_rt(H0[:3, :3], H0[:3, 3], H1[:3, :3], H1[:3, 3], _np.float64(t),
+                           t0, t1)
     H = _np.eye(4)
-    H[:3, :3] = _quat_to_matrix(q)
-    H[:3, 3] = H0[:3, 3] + u * (H1[:3, 3] - H0[:3, 3])
+    H[:3, :3] = R
+    H[:3, 3] = tv
     return H
+
+
+def interpolate_rt(R0, t0v, R1, t1v, t, t0, t1):
+    """Linear translation + slerp rotation between (R0, t0v) at t0 and
+    (R1, t1v) at t1, evaluated at times t (broadcastable); extrapolates
+    outside [t0, t1] (MotionModel.h:115-124). Returns ((..., 3, 3), (..., 3))."""
+    u = (_np.asarray(t) - t0) / (t1 - t0)
+    q = _quat_slerp(_quat_from_matrix(_np.asarray(R0, _np.float64)),
+                    _quat_from_matrix(_np.asarray(R1, _np.float64)), u)
+    tv = _np.asarray(t0v) + u[..., None] * (_np.asarray(t1v) - _np.asarray(t0v))
+    return _quat_to_matrix(q), tv
+
+
+def rpy_to_matrix(rpy):
+    return _rpy_to_matrix(_np.asarray(rpy, dtype=_np.float64))
+
+
+def matrix_to_rpy(R):
+    return _matrix_to_rpy(_np.asarray(R, dtype=_np.float64))
+
+
+def quat_from_matrix(R):
+    return _quat_from_matrix(_np.asarray(R, dtype=_np.float64))
+
+
+def quat_to_matrix(q):
+    return _quat_to_matrix(_np.asarray(q, dtype=_np.float64))
+
+
+def hat(w):
+    """(3,) -> (3, 3) skew-symmetric cross-product matrix."""
+    w = _np.asarray(w, dtype=_np.float64)
+    return _np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+
+
+def so3_log(R):
+    """Rotation matrix -> rotation vector (angle * axis)."""
+    R = _np.asarray(R, dtype=_np.float64)
+    c = _np.clip((_np.trace(R) - 1.0) / 2.0, -1.0, 1.0)
+    theta = _np.arccos(c)
+    if theta < 1e-9:
+        return _np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]]) / 2.0
+    if abs(_np.pi - theta) < 1e-6:
+        # near pi: the axis from the symmetric part, signs from its first row
+        A = (R + _np.eye(3)) / 2.0
+        axis = _np.sqrt(_np.maximum(_np.diag(A), 0.0))
+        if A[0, 1] < 0:
+            axis[1] = -axis[1]
+        if A[0, 2] < 0:
+            axis[2] = -axis[2]
+        return theta * axis / max(_np.linalg.norm(axis), 1e-12)
+    v = _np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return theta / (2.0 * _np.sin(theta)) * v
+
+
+def so3_exp(w):
+    """Rotation vector -> rotation matrix (Rodrigues)."""
+    w = _np.asarray(w, dtype=_np.float64)
+    theta = _np.linalg.norm(w)
+    W = hat(w)
+    if theta < 1e-9:
+        return _np.eye(3) + W
+    return (_np.eye(3) + _np.sin(theta) / theta * W
+            + (1 - _np.cos(theta)) / theta**2 * (W @ W))
+
+
+def se3_log(H):
+    """(4,4) isometry -> (6,) twist [rho, phi] with H = exp([rho, phi])."""
+    H = _np.asarray(H, dtype=_np.float64)
+    phi = so3_log(H[:3, :3])
+    theta = _np.linalg.norm(phi)
+    W = hat(phi)
+    if theta < 1e-9:
+        Vinv = _np.eye(3) - 0.5 * W
+    else:
+        Vinv = (_np.eye(3) - 0.5 * W
+                + (1.0 / theta**2 - (1.0 + _np.cos(theta)) / (2.0 * theta * _np.sin(theta)))
+                * (W @ W))
+    return _np.concatenate([Vinv @ H[:3, 3], phi])
+
+
+def se3_exp(xi):
+    """(6,) twist [rho, phi] -> (4,4) isometry."""
+    xi = _np.asarray(xi, dtype=_np.float64)
+    rho, phi = xi[:3], xi[3:]
+    theta = _np.linalg.norm(phi)
+    W = hat(phi)
+    R = so3_exp(phi)
+    if theta < 1e-9:
+        V = _np.eye(3) + 0.5 * W
+    else:
+        V = (_np.eye(3) + (1 - _np.cos(theta)) / theta**2 * W
+             + (theta - _np.sin(theta)) / theta**3 * (W @ W))
+    H = _np.eye(4)
+    H[:3, :3] = R
+    H[:3, 3] = V @ rho
+    return H
+
+
+def adjoint(H):
+    """(4,4) -> (6,6) adjoint of SE(3) for [rho, phi] twist order."""
+    H = _np.asarray(H, dtype=_np.float64)
+    R = H[:3, :3]
+    Ad = _np.zeros((6, 6))
+    Ad[:3, :3] = R
+    Ad[:3, 3:] = hat(H[:3, 3]) @ R
+    Ad[3:, 3:] = R
+    return Ad
 
 
 # -----------------------------------------------------------------------------
@@ -248,3 +356,109 @@ def jinterpolate_rt(R0, t0v, R1, t1v, t, t0, t1):
     u = (t - t0) / (t1 - t0)
     q = jquat_slerp(jquat_from_matrix(R0), jquat_from_matrix(R1), u)
     return jquat_to_matrix(q), t0v + u[..., None] * (t1v - t0v)
+
+
+# -----------------------------------------------------------------------------
+# Batched SE(3) Lie ops (torch, branch-free): the building blocks of the
+# device pose-graph backend (backend/posegraph_device.py). All accept leading
+# batch dimensions and follow the input dtype (float64 for pose graphs).
+# -----------------------------------------------------------------------------
+
+def _eye_like(x, n: int, shape):
+    return torch.eye(n, dtype=x.dtype, device=x.device).expand(shape)
+
+
+def _bottom_row(top):
+    row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device)
+    return torch.cat([top, row.expand(top[..., :1, :].shape)], dim=-2)
+
+
+def jhat(w):
+    """(..., 3) -> (..., 3, 3) skew-symmetric matrices."""
+    z = torch.zeros_like(w[..., 0])
+    return torch.stack([
+        torch.stack([z, -w[..., 2], w[..., 1]], dim=-1),
+        torch.stack([w[..., 2], z, -w[..., 0]], dim=-1),
+        torch.stack([-w[..., 1], w[..., 0], z], dim=-1)], dim=-2)
+
+
+def jso3_log(R):
+    """(..., 3, 3) -> (..., 3) rotation vectors, branch-free.
+
+    Accurate for |theta| < pi - 1e-3 (pose-graph residuals and consecutive
+    relative motions lie far inside); near pi the axis comes from the
+    symmetric part, and the exact-pi axis ambiguity is not handled."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.acos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
+    v = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                     R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    small = theta < 1e-5
+    big = theta > _np.pi - 1e-3
+    # theta / (2 sin theta); Taylor 0.5 + theta^2/12 near 0
+    f = torch.where(small, 0.5 + theta * theta / 12.0,
+                    theta / torch.clamp(2.0 * torch.sin(theta), min=1e-20))
+    general = f[..., None] * v
+    A = 0.5 * (R + _eye_like(R, 3, R.shape))
+    diag = torch.stack([A[..., 0, 0], A[..., 1, 1], A[..., 2, 2]], dim=-1)
+    axis = torch.sqrt(torch.clamp(diag, min=0.0)) * torch.where(v >= 0, 1.0, -1.0)
+    axis = axis / torch.clamp(torch.linalg.norm(axis, dim=-1, keepdim=True), min=1e-12)
+    return torch.where(big[..., None], theta[..., None] * axis, general)
+
+
+def jso3_exp(w):
+    """(..., 3) rotation vectors -> (..., 3, 3) matrices (Rodrigues)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-40))
+    W = jhat(w)
+    small = theta2 < 1e-12
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    return _eye_like(w, 3, W.shape) + a[..., None, None] * W + b[..., None, None] * (W @ W)
+
+
+def jse3_log(H):
+    """(..., 4, 4) -> (..., 6) twists [rho, phi] (se3_log parity)."""
+    phi = jso3_log(H[..., :3, :3])
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-40))
+    W = jhat(phi)
+    small = theta2 < 1e-12
+    coef = torch.where(small, 1.0 / 12.0,
+                       1.0 / torch.clamp(theta2, min=1e-40)
+                       - (1.0 + torch.cos(theta))
+                       / torch.clamp(2.0 * theta * torch.sin(theta), min=1e-20))
+    Vinv = _eye_like(H, 3, W.shape) - 0.5 * W + coef[..., None, None] * (W @ W)
+    rho = torch.einsum("...ij,...j->...i", Vinv, H[..., :3, 3])
+    return torch.cat([rho, phi], dim=-1)
+
+
+def jse3_exp(xi):
+    """(..., 6) twists [rho, phi] -> (..., 4, 4) isometries."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-40))
+    W = jhat(phi)
+    small = theta2 < 1e-12
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / torch.clamp(theta2, min=1e-40))
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / torch.clamp(theta2 * theta, min=1e-40))
+    V = _eye_like(xi, 3, W.shape) + b[..., None, None] * W + c[..., None, None] * (W @ W)
+    t = torch.einsum("...ij,...j->...i", V, rho)
+    return _bottom_row(torch.cat([jso3_exp(phi), t[..., None]], dim=-1))
+
+
+def jhmat_inverse(H):
+    """(..., 4, 4) isometry inverse."""
+    Rt = H[..., :3, :3].transpose(-1, -2)
+    ti = -torch.einsum("...ij,...j->...i", Rt, H[..., :3, 3])
+    return _bottom_row(torch.cat([Rt, ti[..., None]], dim=-1))
+
+
+def jadjoint(H):
+    """(..., 4, 4) -> (..., 6, 6) SE(3) adjoints for [rho, phi] order."""
+    R = H[..., :3, :3]
+    top = torch.cat([R, jhat(H[..., :3, 3]) @ R], dim=-1)
+    bot = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bot], dim=-2)

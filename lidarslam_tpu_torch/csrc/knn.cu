@@ -58,6 +58,12 @@
 // grid sizes depend only on Q, the map's capacity and the card, so the
 // sequence can be captured in a CUDA graph.
 //
+// Each kernel counts its own executions on the device: the first thread of
+// its first CTA adds one to a per-kernel counter (knn_executions reads the
+// four, knn_reset_executions clears them). A graph replay runs the same
+// count, so a caller can tell exactly how often the kernels ran without
+// relying on a profiler's trace, which can lose records under load.
+//
 // Interface: plain C, loaded with ctypes. All pointers are device pointers;
 // the launches go on `stream` and the call returns cudaGetLastError().
 
@@ -78,6 +84,13 @@ constexpr int kScanWarps = 8;     // warps per scan CTA
 constexpr int scan_min_blocks(int k) { return k > 12 ? 2 : 3; }
 constexpr int kMergeWarps = 8;    // warps per merge CTA
 constexpr int kMinPerWarp = 4;    // fewest sub-blocks a scan warp is given
+
+// executions of knn_plan, knn_prefix, knn_scan, knn_merge, in that order
+__device__ unsigned long long g_executions[4];
+
+__device__ __forceinline__ void count_execution(int kernel) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_executions[kernel], 1ULL);
+}
 constexpr int kRun = 8;           // distances computed before one vote
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -265,6 +278,7 @@ knn_plan(const float4* __restrict__ sub_lo, const float4* __restrict__ sub_hi,
          int q, float r2, int* __restrict__ work, int* __restrict__ count) {
   __shared__ float s_box[6];
   __shared__ int s_warp[kPlanWarps];
+  count_execution(0);
   const int tile = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (warp == 0) {
@@ -307,6 +321,7 @@ __global__ void __launch_bounds__(kPrefixThreads)
 knn_prefix(const int* __restrict__ count, int n_tiles, int* __restrict__ start) {
   __shared__ int s_warp[kPrefixThreads / 32];
   __shared__ int s_carry;
+  count_execution(1);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) s_carry = 0;
   __syncthreads();
@@ -354,6 +369,7 @@ knn_scan(const float4* __restrict__ pts, const float4* __restrict__ sub_lo,
          int* __restrict__ stats) {
   __shared__ __align__(16) float4 ring[kScanWarps][2][kSub];
   __shared__ int s_stats[2];
+  count_execution(2);
   const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
     s_stats[0] = 0;
@@ -474,6 +490,7 @@ knn_merge(const float4* __restrict__ pts, const long long* __restrict__ order, i
           float* __restrict__ out_nbr) {
   __shared__ float s_d[kMergeWarps][K][kTile];
   __shared__ int s_s[kMergeWarps][K][kTile];
+  count_execution(3);
   const int t = blockIdx.x;
   const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
   const int total = start[n_tiles];
@@ -569,6 +586,21 @@ void launch(const float4* pts, const float4* sub_lo, const float4* sub_hi, int n
 }  // namespace
 
 extern "C" int knn_sub_block() { return kSub; }
+
+// The four kernels' device execution counts into out[4] (host memory), on
+// the current device; waits for the device first.
+extern "C" int knn_executions(unsigned long long* out) {
+  cudaError_t rc = cudaDeviceSynchronize();
+  if (rc == cudaSuccess) rc = cudaMemcpyFromSymbol(out, g_executions, sizeof(g_executions));
+  return static_cast<int>(rc);
+}
+
+extern "C" int knn_reset_executions() {
+  const unsigned long long zero[4] = {0, 0, 0, 0};
+  cudaError_t rc = cudaDeviceSynchronize();
+  if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(g_executions, zero, sizeof(zero));
+  return static_cast<int>(rc);
+}
 extern "C" int knn_tile() { return kTile; }
 extern "C" int knn_max_k() { return kMaxK; }
 extern "C" int knn_scan_warps_per_cta() { return kScanWarps; }

@@ -21,7 +21,9 @@ nvcc for sm_90a, into `lidarslam_tpu_torch/_build/`, and loaded with ctypes.
 Each wrapper call that launches it adds one to `LAUNCHES`. One call is four
 launches (plan, prefix, scan, merge; see the note at the top of
 `csrc/knn.cu`) with a workspace the wrapper allocates on the current
-stream, so the call can be captured in a CUDA graph.
+stream, so the call can be captured in a CUDA graph. The kernels also
+count their own executions on the device, graph replays included:
+`executions` reads those counts and `reset_executions` clears them.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ PLAIN_CHUNK = 4096  # map slots per step of the plain scan
 _INT_MAX = 2**31 - 1
 
 LAUNCHES = 0       # kernel launches made through `launch`
+KERNELS = ("knn_plan", "knn_prefix", "knn_scan", "knn_merge")  # csrc/knn.cu
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "knn.cu"
@@ -221,6 +224,10 @@ def _library():
                 + [ptr] * 3 + [i32] + [ptr] * 7)
             lib.knn_grid_warps.argtypes = [i32]
             lib.knn_grid_warps.restype = i32
+            lib.knn_executions.argtypes = [ptr]
+            lib.knn_executions.restype = i32
+            lib.knn_reset_executions.argtypes = []
+            lib.knn_reset_executions.restype = i32
             consts = (lib.knn_sub_block, lib.knn_tile, lib.knn_max_k,
                       lib.knn_scan_warps_per_cta)
             for const in consts:
@@ -231,6 +238,27 @@ def _library():
                 raise RuntimeError("csrc/knn.cu constants disagree with cuda_knn.py")
             _lib = lib
         return _lib
+
+
+def executions(device="cuda") -> dict:
+    """How often each kernel (KERNELS) ran on `device` since the last
+    `reset_executions`, counted by the kernels themselves; waits for the
+    device first."""
+    out = (ctypes.c_ulonglong * len(KERNELS))()
+    with torch.cuda.device(torch.device(device)):
+        rc = _library().knn_executions(out)
+    if rc != 0:
+        raise RuntimeError(f"knn_executions failed: cudaError {rc}")
+    return dict(zip(KERNELS, map(int, out)))
+
+
+def reset_executions(device="cuda") -> None:
+    """Set the kernels' device execution counts on `device` to 0 (after
+    waiting for the device)."""
+    with torch.cuda.device(torch.device(device)):
+        rc = _library().knn_reset_executions()
+    if rc != 0:
+        raise RuntimeError(f"knn_reset_executions failed: cudaError {rc}")
 
 
 def grid_warps(k: int, device) -> int:

@@ -17,7 +17,7 @@ distances, angle scores are sines.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -78,11 +78,15 @@ class ExtractionResult(NamedTuple):
     edges: Keypoints
     planes: Keypoints
     blobs: Keypoints
+    # per-point score/label grids (GetDebugArray parity, SSKE.cxx:668-679),
+    # with `with_debug` only
+    debug: Optional[dict] = None
 
 
 def extract_keypoints(ri: RangeImage, azimuthal_resolution: float,
-                      cfg: ExtractorConfig) -> ExtractionResult:
-    """Full extraction pipeline on one sweep."""
+                      cfg: ExtractorConfig, with_debug: bool = False) -> ExtractionResult:
+    """Full extraction pipeline on one sweep; `with_debug` also returns the
+    per-point score and label grids (`Slam.extract_debug`)."""
     xyz, intensity, valid = ri.xyz, ri.intensity, ri.valid
     R, C = valid.shape
     W = cfg.neighbor_width
@@ -222,10 +226,24 @@ def extract_keypoints(ri: RangeImage, azimuthal_resolution: float,
 
     label_blob = point_valid & (col % cfg.blob_stride == 0)
 
+    debug = None
+    if with_debug:
+        debug = {
+            "sin_angle": sin_angle,
+            "saliency": saliency,
+            "depth_gap": depth_gap,
+            "intensity_gap": intensity_gap,
+            "edge_keypoint": label_edge,
+            "plane_keypoint": label_plane,
+            "blob_keypoint": label_blob,
+            "edge_validity": valid_edge | label_edge,
+            "point_validity": point_valid,
+        }
     return ExtractionResult(
         edges=_compact(ri, label_edge, cfg.kp_capacity(0)),
         planes=_compact(ri, label_plane, cfg.kp_capacity(1)),
         blobs=_compact(ri, label_blob, cfg.kp_capacity(2)),
+        debug=debug,
     )
 
 

@@ -14,8 +14,10 @@ flag (RollingGrid.cxx:117-442 semantics):
   in leaf-key order — the k-NN kernel's block pruning relies on that.
   CENTROID keeps the old point of a leaf and blends the batch's run mean
   into it; CENTER_POINT keeps the point nearest the leaf center.
-- **Roll**: shift the window by whole outer voxels; coordinates stay
-  origin-relative float32 (the host tracks the float64 origin).
+- **Roll** (`roll`, or `compute_roll_offset` + `roll_by_offset` for
+  several maps sharing one offset): shift the window by whole outer
+  voxels; coordinates stay origin-relative float32 (the host tracks the
+  float64 origin).
 - **Decay** (`clear_old_points`): removable points older than
   `decaying_threshold` leave the map.
 - **Submap**: a masked view over the map slots (bbox + moving-object filter).
@@ -305,6 +307,15 @@ def clear_old_points(vmap_: VoxelMap, current_time, cfg: MapConfig) -> VoxelMap:
     age = device_f32(current_time, vmap_.time.device) - vmap_.time
     keep = vmap_.valid & (vmap_.fixed | (age <= cfg.decaying_threshold))
     return vmap_._replace(valid=keep)
+
+
+def roll(vmap_: VoxelMap, bbox_min, bbox_max, cfg: MapConfig):
+    """Shift the rolling window so [bbox_min, bbox_max] fits (Roll 117-157).
+
+    Returns (rolled map, voxel offset (3,) i32). The caller must advance its
+    float64 origin by `offset * effective_resolution`."""
+    vox_offset = compute_roll_offset(bbox_min, bbox_max, cfg)
+    return roll_by_offset(vmap_, vox_offset, cfg), vox_offset
 
 
 def compute_roll_offset(bbox_min, bbox_max, cfg: MapConfig):

@@ -2,7 +2,7 @@
 """Write the JAX package's VLP-16 trajectories for the PyTorch port.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_reference.py \
-        [--which bench|full|ext|float|rig|all]
+        [--which bench|full|ext|float|rig|pgo|all]
 
 Runs the JAX package's `Slam` on the CPU over the first `chip_smoke.N_FRAMES`
 (30) sweeps of the bench sequence (weaving street trajectory), through
@@ -28,7 +28,19 @@ Runs the JAX package's `Slam` on the CPU over the first `chip_smoke.N_FRAMES`
   `chip_smoke.render_rig` (two VLP-16s, device 1 at its calibration offset
   with its own extractor), through `Slam.add_frames` and through
   `Slam.add_frames_async` + `flush` -> `vlp16_rig_ref.npz`,
-  `vlp16_rig_stream_ref.npz`.
+  `vlp16_rig_stream_ref.npz`;
+- `pgo`: the `full` configuration's synchronous run, then
+  `Slam.run_pose_graph_optimization(use_device_backend=True)` against GPS
+  at every sweep from the drive's ground truth relative to frame 0 ->
+  `vlp16_pgo_ref.npz`, which holds the logged `times`, `poses_before`
+  (4x4) and `covariances` (6x6, as the PGO took them: a zero one replaced
+  by 1e-4 I), the `gps` positions, the optimized `poses_after` (re-anchored
+  at frame 0, as `Slam` leaves them), each map's valid slots after the
+  rebuild (`map_valid`, per Keypoint type), and `resume_m`: the largest
+  distance over sweeps 15-29 between the uninterrupted run and a fresh
+  Slam continued from the checkpoint written after 15 sweeps, as loaded
+  (JAX's checkpoint holds no keypoints) and with the previous sweep's
+  keypoints put back by hand (ROADMAP Queue 3, D7).
 
 Each holds per frame the poses (float64 4x4), `n_matches`, `failure`,
 `overlap`, `comply_motion_limits`, `stamps` and, in the files written
@@ -168,10 +180,64 @@ def ext_jax_config(bench_cfg):
         wheel_odom_weight=chip_smoke.EXT_ODOM_WEIGHT, imu_weight=chip_smoke.EXT_IMU_WEIGHT)
 
 
+def _pgo(slam, frames, path):
+    """The synchronous run (a checkpoint after chip_smoke.CKPT_AT sweeps,
+    resumed twice), then the PGO against ground-truth GPS."""
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke
+    from lidarslam_tpu import Slam
+    from lidarslam_tpu.config import Keypoint
+    from lidarslam_tpu.core import se3
+
+    results = []
+    ckpt = tempfile.mkdtemp()
+    for i, f in enumerate(frames):
+        if i == chip_smoke.CKPT_AT:
+            slam.save_checkpoint(f"{ckpt}/c.npz")
+            kps = jax.tree.map(np.array, slam._device_keypoints)
+        results.append(slam.add_frame(f))
+        print(f"frame {i}: n_matches {results[-1]['n_matches']} failure "
+              f"{results[-1]['failure']}", file=sys.stderr)
+    resume = []
+    for with_keypoints in (False, True):
+        b = Slam(slam.cfg)
+        b.load_checkpoint(f"{ckpt}/c.npz")
+        if with_keypoints:
+            b._device_keypoints = jax.tree.map(jnp.asarray, kps)
+        resume.append(max(float(np.linalg.norm(b.add_frame(f)["pose"][:3, 3]
+                                               - r["pose"][:3, 3]))
+                          for f, r in zip(frames[chip_smoke.CKPT_AT:],
+                                          results[chip_smoke.CKPT_AT:])))
+    print(f"resumed from the checkpoint: {resume[0]:.3e} m as loaded, {resume[1]:.3e} m "
+          "with the previous keypoints", file=sys.stderr)
+    log = slam.log_trajectory
+    times = np.array([e["time"] for e in log])
+    before = np.stack([e["pose"] for e in log])
+    covs = np.stack([e["covariance"] if np.trace(e["covariance"]) > 0 else np.eye(6) * 1e-4
+                     for e in log])
+    gt0 = se3.hmat_inverse(frames[0]["gt_pose"])
+    gps = np.stack([(gt0 @ f["gt_pose"])[:3, 3] for f in frames])
+    if not slam.run_pose_graph_optimization(gps, times, use_device_backend=True):
+        raise SystemExit("the JAX package's PGO failed")
+    after = np.stack([e["pose"] for e in slam.log_trajectory])
+    valid = [int(np.asarray(slam.maps[k].valid).sum()) if k in slam.maps else 0
+             for k in Keypoint]
+    np.savez_compressed(path, times=times, poses_before=before, covariances=covs, gps=gps,
+                        poses_after=after, map_valid=np.asarray(valid, np.int64),
+                        resume_m=np.asarray(resume, np.float64))
+    print(f"wrote {path}: max PGO move "
+          f"{np.abs(after[:, :3, 3] - before[:, :3, 3]).max():.3e} m, maps {valid}",
+          file=sys.stderr)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=str(ROOT / "lidarslam_tpu_torch" / "data"))
-    ap.add_argument("--which", choices=("bench", "full", "ext", "float", "rig", "all"),
+    ap.add_argument("--which", choices=("bench", "full", "ext", "float", "rig", "pgo", "all"),
                     default="all")
     args = ap.parse_args()
 
@@ -220,6 +286,9 @@ def main():
         acquisitions, offset = chip_smoke.render_rig(N_FRAMES)
         _run_both(Slam, rig_cfg, acquisitions, out, "vlp16_rig_ref.npz",
                   "vlp16_rig_stream_ref.npz", offset=offset, per_type=True)
+    if args.which in ("pgo", "all"):
+        native.available = lambda: False
+        _pgo(Slam(full_jax_config(cfg)), frames(True), out / "vlp16_pgo_ref.npz")
     print(f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
 

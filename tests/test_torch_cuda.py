@@ -202,6 +202,30 @@ def test_cuda_kernel_in_cuda_graph(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_kernels_count_their_executions(cuda):
+    """Each kernel counts its own executions on the device: once per eager
+    call and once per graph replay, and `reset_executions` clears them."""
+    xyz, valid, _, _ = _scene()
+    queries, q_valid = _queries_off(xyz, valid, 512, seed=9)
+    index, q, qv = _check_kernel(cuda, xyz, valid, queries, q_valid, 5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_knn.kernel_knn(index, q, 5, RADIUS, qv)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cuda_knn.kernel_knn(index, q, 5, RADIUS, qv)
+    cuda_knn.reset_executions()
+    assert cuda_knn.executions() == dict.fromkeys(cuda_knn.KERNELS, 0)
+    for _ in range(3):
+        cuda_knn.kernel_knn(index, q, 5, RADIUS, qv)
+    for _ in range(4):
+        graph.replay()
+    assert cuda_knn.executions() == dict.fromkeys(cuda_knn.KERNELS, 7)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_checks_inputs(cuda):
     x = torch.zeros(100, 3, device=cuda)
     v = torch.ones(100, dtype=torch.bool, device=cuda)
@@ -573,3 +597,84 @@ def test_cuda_logged_keypoints_are_the_logs_own(cuda):
     slam.flush()
     assert all(torch.equal(a, b) for e, c in kept for a, b in zip(e, c))
     assert all(torch.equal(e._buf, c) for e, c in views)
+
+
+def _pgo_graph(n=200, seed=7):
+    """A drifting odometry chain with GPS every fifth pose (the recipe of
+    tests/test_posegraph_device.py::_make_graph, without jax)."""
+    from lidarslam_tpu_torch.core import se3
+
+    rng = np.random.default_rng(seed)
+    gt, noisy = [np.eye(4)], [np.eye(4)]
+    step = np.eye(4)
+    step[:3, :3] = se3.so3_exp([0, 0, 0.02])
+    step[0, 3] = 1.0
+    for _ in range(1, n):
+        gt.append(gt[-1] @ step)
+        nstep = step.copy()
+        nstep[:3, 3] += rng.normal(0, 0.02, 3)
+        nstep[:3, :3] = nstep[:3, :3] @ se3.so3_exp(rng.normal(0, 0.002, 3))
+        noisy.append(noisy[-1] @ nstep)
+    times = np.arange(n) * 0.1
+    gps = np.stack([g[:3, 3] for g in gt[::5]]) + rng.normal(0, 0.01, (len(gt[::5]), 3))
+    return noisy, times, [np.eye(6) * 1e-3] * n, gps, times[::5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [0, 8])
+def test_cuda_device_pgo_matches_cpu(cuda, segments):
+    """The float64 PGO on the card (the block-LDL loop, and Schur over 8
+    segments) against the same solve on the CPU and the numpy oracle."""
+    from lidarslam_tpu_torch.backend import posegraph, posegraph_device
+
+    noisy, times, covs, gps, gps_t = _pgo_graph()
+    kw = dict(gps_positions=gps, gps_times=gps_t)
+    on_card, c_card = posegraph_device.optimize_pose_graph_device(
+        noisy, times, covs, **kw, n_segments=segments, device=cuda)
+    on_cpu, c_cpu = posegraph_device.optimize_pose_graph_device(
+        noisy, times, covs, **kw, n_segments=segments, device="cpu")
+    oracle, _ = posegraph.optimize_pose_graph(noisy, times, covs, **kw)
+    assert max(np.abs(a - b).max() for a, b in zip(on_card, on_cpu)) < 1e-8
+    assert max(np.abs(a - b).max() for a, b in zip(on_card, oracle)) < 1e-5
+    assert c_card == pytest.approx(c_cpu, rel=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip_and_pgo(cuda, tmp_path):
+    """A checkpoint written on the card after 5 sweeps, loaded into a fresh
+    Slam on the card and continued, within 5e-3 m of the uninterrupted run;
+    the same checkpoint continued on the CPU within 0.01 m; then PGO on the
+    card against GPS from the ground truth, and a stream after it (seeded
+    into the captured graph from the rebuilt maps) without a failure."""
+    from lidarslam_tpu_torch.core import se3
+
+    cfg = _small_stream_cfg()
+    frames = synthetic.generate_sequence(n_frames=16, motion_distortion=False,
+                                         sensor=synthetic.SensorModel(range_noise=0.005))
+    a = Slam(cfg, device=cuda)
+    for f in frames[:5]:
+        a.add_frame(f)
+    a.save_checkpoint(str(tmp_path / "s.npz"))
+    ra = [a.add_frame(f) for f in frames[5:8]]
+    for dev, tol in ((cuda, 5e-3), ("cpu", 0.01)):
+        b = Slam(cfg, device=dev)
+        b.load_checkpoint(str(tmp_path / "s.npz"))
+        for x, f in zip(ra, frames[5:8]):
+            y = b.add_frame(f)
+            assert np.linalg.norm(x["pose"][:3, 3] - y["pose"][:3, 3]) < tol
+    # a graph captured before the PGO is re-seeded after it
+    for f in frames[8:12]:
+        a.add_frame_async(f)
+    a.flush()
+    graph = a._graph
+    assert graph.graph is not None
+    gt0 = se3.hmat_inverse(frames[0]["gt_pose"])
+    gps = np.stack([(gt0 @ f["gt_pose"])[:3, 3] for f in frames[:12]])
+    assert a.execute_command(Slam.GPS_SLAM_POSE_GRAPH_OPTIMIZATION, gps_positions=gps,
+                             gps_times=[f["stamp"] for f in frames[:12]],
+                             use_device_backend=True)
+    for f in frames[12:]:
+        a.add_frame_async(f)
+    outs = a.flush()
+    assert a._graph is graph
+    assert len(outs) == 4 and all(not o["failure"] for o in outs)

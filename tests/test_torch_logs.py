@@ -29,6 +29,7 @@ from lidarslam_tpu_torch.io import pcd as tpcd
 from lidarslam_tpu_torch.io import storage as tstorage
 from lidarslam_tpu_torch.ops import frame as tframe
 from test_slam_e2e import small_config
+from test_torch_native import jax_native_lib
 from test_torch_slam import _one_torch_thread, _torch_config  # noqa: F401
 
 TIERS = ("DEVICE", "HOST", "COMPRESSED", "OCTREE", "DISK")
@@ -180,6 +181,7 @@ def _run(slam, frames, stream):
 def jax_logs():
     """JAX's keypoint log on both paths (DEVICE tier) over N_FRAMES sweeps;
     both packages on their native ingest."""
+    jax_native_lib()
     frames = _frames(N_FRAMES)
     jcfg = _log_jcfg()
     return frames, jcfg, {p: _run(JSlam(jcfg), frames, p == "stream")

@@ -18,6 +18,7 @@ from lidarslam_tpu_torch import Slam as TSlam
 from lidarslam_tpu_torch.ops import frame as tframe
 from test_multilidar_debug import _cfg as _split_jcfg
 from test_multilidar_debug import _split_frame
+from test_torch_native import jax_native_lib
 from test_torch_slam import _one_torch_thread, _pose_err, _torch_config  # noqa: F401
 
 N_FRAMES = 6            # acquisitions per run (the JAX tests take 8; 6 keep
@@ -100,7 +101,8 @@ def _drive(slam, acquisitions, stream, offset, merged=None):
 def split_runs():
     """tests/test_multilidar_debug.py's rig: one sweep split in two, the
     rear half seen by device 1 in its own frame, both on the default
-    extractor."""
+    extractor; both packages on their native ingest."""
+    jax_native_lib()
     frames = jsyn.generate_sequence(n_frames=N_FRAMES, motion_distortion=False)
     acq = [_split_frame(f, SPLIT_OFFSET) for f in frames]
     jcfg = _split_jcfg()

@@ -14,11 +14,14 @@ from lidarslam_tpu_torch import config as tcfg
 from test_multilidar_streaming import OFFSET, _cfg, _two_sensor_sequences
 from test_torch_multilidar import (N_FRAMES, STREAM_M, SYNC_M, _drive, check_merged,
                                    check_rig)
+from test_torch_native import jax_native_lib
 from test_torch_slam import _one_torch_thread, _torch_config  # noqa: F401
 
 
 @pytest.fixture(scope="module")
 def rig_runs():
+    """Both packages on their native ingest."""
+    jax_native_lib()
     f0, f1 = _two_sensor_sequences(N_FRAMES)
     acq = [[a, b] for a, b in zip(f0, f1)]
     jcfg = _cfg(device_extractors=(

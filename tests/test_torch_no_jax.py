@@ -33,6 +33,16 @@ from lidarslam_tpu_torch.ops.frame import merge_keypoints, transform_keypoints
 from lidarslam_tpu_torch.ops.pipeline import process_keypoints_stream
 from lidarslam_tpu_torch.ops.stream_graph import FloatRecord, KeypointRecord
 from lidarslam_tpu_torch.utils import profiling, timer
+# the back end and the state surface
+from lidarslam_tpu_torch import evaluation, outputs
+from lidarslam_tpu_torch.backend import posegraph, posegraph_device, registration
+assert callable(posegraph_device.optimize_pose_graph_device)
+for name in ("run_pose_graph_optimization", "save_checkpoint", "load_checkpoint",
+             "save_maps_to_pcd", "load_maps_from_pcd", "execute_command", "subscribe",
+             "get_debug_array", "extract_debug", "get_registered_frame",
+             "get_debug_information", "set_world_transform_from_guess",
+             "get_latency_compensated_world_transform"):
+    assert callable(getattr(Slam, name)), name
 assert native.available(), native.last_error()
 assert lzf.decompress(lzf.compress(b"ab" * 64), 128) == b"ab" * 64
 assert callable(Slam.add_frame_async) and callable(Slam.flush)

@@ -90,11 +90,11 @@ def runs():
         js = JSlam(jcfg)
         jres, state = [], None
         for i, f in enumerate(frames):
-            jres.append(js.add_frame(f))
+            jres.append({**js.add_frame(f), "Trelative": js.Trelative.copy()})
             if i == STATE_AFTER:
                 state = _jax_state(js)
         ts = TSlam(_torch_config(jcfg), device="cpu")
-        tres = [ts.add_frame(f) for f in frames]
+        tres = [{**ts.add_frame(f), "Trelative": ts.Trelative.copy()} for f in frames]
     return frames, jres, tres, state, _torch_config(jcfg)
 
 
@@ -122,6 +122,19 @@ def test_n_matches_within_one_percent(runs):
     for i, (t, j) in enumerate(zip(tres, jres)):
         assert abs(t["n_matches"] - j["n_matches"]) <= 0.01 * j["n_matches"], i
     assert min(t["n_matches"] for t in tres[1:]) > 100
+
+
+def test_trelative_matches_jax(runs):
+    """Slam.Trelative, the last sweep's relative motion, after every frame:
+    identity before the first localization, then within 1e-4 m / 0.01 deg
+    of JAX's (the packed float32 relative pose)."""
+    _, jres, tres, _, _ = runs
+    np.testing.assert_array_equal(tres[0]["Trelative"], np.eye(4))
+    np.testing.assert_array_equal(jres[0]["Trelative"], np.eye(4))
+    for i, (t, j) in enumerate(zip(tres, jres)):
+        dt, dr = _pose_err(t["Trelative"], j["Trelative"])
+        assert dt < 1e-4 and dr < 0.01, (i, dt, dr)
+    assert np.linalg.norm(tres[-1]["Trelative"][:3, 3]) > 0.05   # the sensor moves
 
 
 def test_port_tracks_ground_truth(runs):

@@ -82,6 +82,7 @@ def runs():
         js = JSlam(jcfg)
         out["jax"] = _stream(js, frames)
         out["jax_kf"] = js.kf_counter
+        out["jax_trel"] = js.Trelative.copy()
         out["jax_partial"] = _stream(JSlam(jcfg), frames, split=4)
         out["jax_seeded"] = _stream(JSlam(jcfg), frames, sync_first=2)
         # a JAX stream state stepped per frame, as the per-frame path does,
@@ -104,6 +105,7 @@ def runs():
         ts = TSlam(out["cfg"], device="cpu")
         out["torch"] = _stream(ts, frames)
         out["torch_kf"] = ts.kf_counter
+        out["torch_trel"] = ts.Trelative.copy()
         out["torch_slam"] = ts
         out["torch_partial"] = _stream(TSlam(out["cfg"], device="cpu"), frames, split=4)
         out["torch_seeded"] = _stream(TSlam(out["cfg"], device="cpu"), frames, sync_first=2)
@@ -146,6 +148,15 @@ def test_stream_keyframes_logs_and_maps(runs):
         pts, *_ = ts.get_map_points(k)
         assert len(pts) > 200
     assert ts.flush() == []
+
+
+def test_stream_trelative_matches_jax(runs):
+    """Slam.Trelative after the flush (the last streamed sweep's relative
+    motion) within 1e-3 m / 0.1 deg of JAX's."""
+    t, j = runs["torch_trel"], runs["jax_trel"]
+    dt, dr = _pose_err(t, j)
+    assert dt < 1e-3 and dr < 0.1, (dt, dr)
+    assert np.linalg.norm(t[:3, 3]) > 0.05
 
 
 def test_flush_without_pending_is_empty(runs):
