@@ -122,11 +122,36 @@ the CUDA toolkit. Phases, each printed as it goes:
    of 20 sweeps, `execute_command(GPS_SLAM_POSE_GRAPH_OPTIMIZATION)`, and
    the next segment: its captured graph's buffers re-seeded in place from
    the rebuilt maps, one replay against the eager step, a window of 8
-   replays with 0 failed.
+   replays with 0 failed;
+10. the front ends, on phase 6's 30 distorted sweeps written as binary PCDs
+   (`write_cli_pcds`, each file's sha256 the reference's): `cli run
+   --config configs/slam_config_outdoor.yaml --pcd-dir ... --log-dir ...
+   --aggregate --vtp --save-maps` and `cli run --follow`, each in its own
+   process on the card (`counted_cli`: `cli.main`, what `python -m
+   lidarslam_tpu_torch.cli` runs, with the k-NN counters read at its end),
+   each held by `cli compare` to the JAX CLI's run on the same files
+   (lidarslam_tpu_torch/data/vlp16_cli_ref.npz, 0.01 m / 5 deg, the time
+   check off: the reference's times are a CPU's), 0 failed, n_matches
+   within 1%, every output file parsed by the port's readers; `cli
+   aggregate` on the run's log within 1e-4 m of its aggregated.pcd, point
+   for point, with JAX's count; `cli extract` on the first 5 sweeps with
+   JAX's edge / plane / blob counts and azimuthal resolutions (1e-6). Then,
+   in this process, after direct runs on the card: the TCP server with
+   client A streaming sweeps 0-14 and client B, on a new connection, 15-29
+   (the stream's graph captured in A's handler thread and replayed in
+   B's, `GraphSteps`), within 1e-6 m of a direct stream with the same
+   flushes and 0.01 m of JAX's `--follow`, its plane map the direct
+   run's, command 99 answered with an `error` on a session that goes on;
+   the server in sync mode, the ROS node (PointCloud2 wire, a recording
+   facade, its `Slam` built on the card from the yaml tree) and the
+   ParaView core (Velodyne arrays) on 10 sweeps, each within 1e-6 m of a
+   direct sync run on the sweeps it ingests. On every path the k-NN
+   kernels ran once per wrapper call outside a graph plus the calls the
+   graphs replayed, counted on the device.
 
 Phases 4-7 and 9 pin the port's host ingest to numpy (`numpy_ingest`), on
-which their JAX references were made; phase 5's native runs and phase 8
-take the native ingest.
+which their JAX references were made; phase 5's native runs and phases 8
+and 10 take the native ingest.
 
 Every count of k-NN kernel executions above is the kernels' own, kept on
 the device (`cuda_knn.executions`) and reset just before the profiled
@@ -1203,10 +1228,10 @@ def _record_knn_calls(fn, keep_inputs=True):
         cuda_knn.launch = real
 
 
-def _path_call_case(label, per_frame, index, q, q_valid, k, r2, card, tag="full"):
-    """One k-NN call of the full path on the inputs the path gave it: the
-    kernel against plain_knn (bit-equal without a prune radius, equal within
-    it with one), its timings and its bound. Returns its record."""
+def _hold_call(label, index, q, q_valid, k, r2, tag):
+    """One k-NN call on the inputs a path gave it: the kernel against
+    plain_knn (bit-equal without a prune radius, equal within it with one).
+    Returns (max abs error of d2, radius or None, the plain map)."""
     import torch
 
     from lidarslam_tpu_torch.ops import cuda_knn
@@ -1223,7 +1248,13 @@ def _path_call_case(label, per_frame, index, q, q_valid, k, r2, card, tag="full"
             and torch.equal(kn[keep], pn[keep])):
         raise AssertionError(f"[{tag}] {label}: kernel != plain on the path's inputs")
     both = keep & torch.isfinite(pd)
-    err = float(torch.where(both, (kd - pd).abs(), 0.0).max())
+    return float(torch.where(both, (kd - pd).abs(), 0.0).max()), radius, (xyz, valid)
+
+
+def _path_call_case(label, per_frame, index, q, q_valid, k, r2, card, tag="full"):
+    """One k-NN call of a path on the inputs the path gave it: held against
+    plain_knn (`_hold_call`), its timings and its bound. Returns its record."""
+    err, radius, (xyz, valid) = _hold_call(label, index, q, q_valid, k, r2, tag)
 
     t = _timings(index, q, q_valid, k, radius, plain_map=(xyz, valid))
     b = knn_bound(index, q, q_valid, k, radius)
@@ -2296,6 +2327,603 @@ def phase_rig(card: str):
             "max_abs_err": max(s_["max_abs_err"] for s_ in shapes)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the front ends (cli, server, ROS node, ParaView core)
+# ---------------------------------------------------------------------------
+
+CLI_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_cli_ref.npz"
+CLI_CONFIG = ROOT / "configs" / "slam_config_outdoor.yaml"
+CLI_EXTRACT = 5             # sweeps of the extract check (the reference's)
+CLI_AGG_M = 1e-4            # `aggregate` against the run's aggregated.pcd [m]
+CLI_TIMEOUT_S = 400         # one CLI process on the card
+SERVER_SPLIT = 15           # client A streams sweeps 0-14, client B 15-29
+FRONT_SWEEPS = 10           # sweeps through the sync server, the ROS node, the core
+DIRECT_M = 1e-6             # a front end against a direct Slam on the same sweeps [m]
+
+
+def write_cli_pcds(frames, directory, save_pcd):
+    """The sweeps as the binary PCDs a user's recorder writes (intensity,
+    time, laser_id), named in order: (path, sha256) of each. `save_pcd` is
+    either package's `io.pcd.save_pcd`; they write the same bytes."""
+    import hashlib
+
+    out = []
+    for i, f in enumerate(frames):
+        path = Path(directory) / f"sweep_{i:04d}.pcd"
+        save_pcd(path, f["xyz"], intensity=f["intensity"], time=f["time"],
+                 laser_id=f["laser_id"])
+        out.append((path, hashlib.sha256(path.read_bytes()).hexdigest()))
+    return out
+
+
+class GraphSteps:
+    """While installed, records each step of every captured stream graph
+    (`stream_graph._Replayed._step`): the graph, whether the step was a
+    warm-up, the capture or a replay, the thread it ran in (by name: the
+    runtime reuses a finished thread's ident, never its name), and the
+    k-NN wrapper calls made during it (a capture's are the calls its
+    graph replays)."""
+
+    def __init__(self):
+        self.events = []        # (id(graph), kind, thread name, wrapper calls)
+
+    def __enter__(self):
+        import threading
+
+        from lidarslam_tpu_torch.ops import cuda_knn, stream_graph
+
+        step = self._step = stream_graph._Replayed._step
+        events = self.events
+
+        def recorded(graph):
+            captured = graph.graph is not None
+            before = cuda_knn.LAUNCHES
+            out = step(graph)
+            kind = "replay" if captured else ("capture" if graph.graph is not None
+                                              else "warm-up")
+            events.append((id(graph), kind, threading.current_thread().name,
+                           cuda_knn.LAUNCHES - before))
+            return out
+
+        stream_graph._Replayed._step = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from lidarslam_tpu_torch.ops import stream_graph
+
+        stream_graph._Replayed._step = self._step
+
+    def replayed_calls(self) -> int:
+        """k-NN calls the replays ran: each replays the calls its capture
+        recorded (the capture itself replays once, its calls counted as
+        wrapper calls)."""
+        calls = {g: n for g, kind, _, n in self.events if kind == "capture"}
+        return sum(calls[g] for g, kind, _, _ in self.events if kind == "replay")
+
+
+def _knn_counts(run):
+    """Run `run()` with the k-NN counters set to 0 just before and read just
+    after: (its result, wrapper calls, device executions of each kernel)."""
+    import torch
+
+    from lidarslam_tpu_torch.ops import cuda_knn
+
+    torch.cuda.synchronize()
+    cuda_knn.reset_executions()
+    cuda_knn.LAUNCHES = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, cuda_knn.LAUNCHES, cuda_knn.executions()
+
+
+def _hold_executions(tag, calls, executed, replayed=0):
+    """Each k-NN kernel ran once per wrapper call outside a graph, plus the
+    calls the graphs replayed, and the path launched it."""
+    want = calls + replayed
+    _require(calls > 0 and all(n == want for n in executed.values()),
+             f"[{tag}] k-NN kernel executions {executed} for {calls} wrapper calls "
+             f"and {replayed} replayed calls")
+
+
+def counted_cli(argv) -> int:
+    """`lidarslam_tpu_torch.cli.main(argv)`, what `python -m
+    lidarslam_tpu_torch.cli` runs, in this process, with the k-NN counters
+    set to 0 before it and written after it, as JSON, to the file named by
+    the environment's KNN_COUNTS (wrapper calls, device executions, and the
+    calls the stream's graph replays ran)."""
+    import os
+
+    from lidarslam_tpu_torch import cli
+    from lidarslam_tpu_torch.ops import cuda_knn
+
+    cuda_knn.reset_executions()
+    cuda_knn.LAUNCHES = 0
+    with GraphSteps() as steps:
+        rc = cli.main(argv)
+    Path(os.environ["KNN_COUNTS"]).write_text(json.dumps({
+        "calls": cuda_knn.LAUNCHES, "executions": cuda_knn.executions(),
+        "replayed": steps.replayed_calls()}))
+    return rc
+
+
+def _cli_process(tag, argv, counts: Path):
+    """One CLI command in its own process on the card: its JSON last line
+    and its k-NN counts, held as `_hold_executions` holds them."""
+    import os
+
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            "sys.exit(chip_smoke.counted_cli(sys.argv[1:]))")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code, *argv], cwd=ROOT, capture_output=True,
+                       text=True, timeout=CLI_TIMEOUT_S,
+                       env={**os.environ, "KNN_COUNTS": str(counts)})
+    wall = time.perf_counter() - t0
+    _require(r.returncode == 0, f"[{tag}] `cli {' '.join(argv)}` exited {r.returncode}:\n"
+             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    n = json.loads(counts.read_text())
+    _hold_executions(tag, n["calls"], n["executions"], n["replayed"])
+    return json.loads(r.stdout.strip().splitlines()[-1]), n, wall
+
+
+def _cli_main(argv):
+    """An in-process command (aggregate, extract, compare): (rc, JSON last line)."""
+    import io
+
+    from lidarslam_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _check_cli_run(tag, out: Path, ref, key, ref_dir: Path):
+    """`cli compare` of a run against its JAX reference (0.01 m / 5 deg; the
+    reference's times are a CPU's, so the time check is off), no failed
+    frame, n_matches within 1% of JAX's on every frame."""
+    import numpy as np
+
+    from lidarslam_tpu_torch.io import csv_log
+
+    ref_dir.mkdir()
+    np.savetxt(ref_dir / "Poses.csv", ref[f"{key}_poses"], fmt="%.9f")
+    rc, cmp = _cli_main(["compare", "--res", str(out), "--ref", str(ref_dir),
+                         "--time-threshold", "1e9"])
+    _require(rc == 0 and cmp["success"] and cmp["n_compared"] == N_FRAMES,
+             f"[{tag}] compare against the JAX reference: rc {rc}, {cmp}")
+    ev = csv_log.read_evaluators_csv(out / "Evaluators.csv")
+    want = ref[f"{key}_n_matches"]
+    _require(np.all(np.abs(ev[:, 2] - want) <= 0.01 * want),
+             f"[{tag}] n_matches {ev[:, 2].astype(int).tolist()} against JAX's "
+             f"{want.tolist()}")
+    with open(out / "Trajectory.csv") as f:
+        header = f.readline().strip().split(",")
+    failed = int(np.loadtxt(out / "Trajectory.csv", delimiter=",", skiprows=1,
+                            ndmin=2)[:, header.index("failure")].sum())
+    _require(failed == 0 == int(ref[f"{key}_failed"]), f"[{tag}] {failed} failed frames")
+    return cmp
+
+
+def _check_cli_outputs(out: Path):
+    """Every file of the synchronous run parses with the port's readers."""
+    import numpy as np
+
+    from lidarslam_tpu_torch.io import csv_log, export, pcd, vtp
+
+    poses = csv_log.read_poses_csv(out / "Poses.csv")
+    traj = export.read_trajectory_csv(out / "Trajectory.csv")
+    _require(len(poses) == len(traj) == N_FRAMES
+             and csv_log.read_evaluators_csv(out / "Evaluators.csv").shape == (N_FRAMES, 4),
+             "[cli] Poses.csv / Trajectory.csv / Evaluators.csv rows")
+    _require(max(abs(e["time"] - t) + float(np.abs(e["pose"] - H).max())
+                 for e, (t, H) in zip(traj, poses)) < 1e-6,
+             "[cli] Trajectory.csv disagrees with Poses.csv")
+    _require(np.loadtxt(out / "poses_kitti.txt").shape == (N_FRAMES, 12)
+             and np.loadtxt(out / "poses_tum.txt").shape == (N_FRAMES, 8),
+             "[cli] KITTI / TUM pose files")
+    ply = (out / "trajectory.ply").read_text().splitlines()
+    end = ply.index("end_header")
+    _require(ply[0] == "ply" and f"element vertex {N_FRAMES}" in ply
+             and len(ply) == end + 1 + 2 * N_FRAMES - 1, "[cli] trajectory.ply")
+    pts, pdata, cells = vtp.read_vtp(str(out / "trajectory.vtp"))
+    _require(len(pts) == N_FRAMES and cells["lines"][1].tolist() == [N_FRAMES]
+             and pdata["covariance"].shape == (N_FRAMES, 36), "[cli] trajectory.vtp")
+    sizes = {}
+    for name in ("edge", "plane"):
+        m_xyz, m_data, m_cells = vtp.read_vtp(str(out / f"map_{name}.vtp"))
+        m_pcd = pcd.load_pcd(out / f"map_{name}s.pcd")
+        _require(len(m_xyz) == len(m_pcd["xyz"]) == len(m_data["Intensity"]) > 100
+                 and np.abs(m_xyz - m_pcd["xyz"]).max() < 1e-4,
+                 f"[cli] map_{name}.vtp against map_{name}s.pcd")
+        sizes[name] = len(m_xyz)
+    agg = pcd.load_pcd(out / "aggregated.pcd")
+    _require(np.isfinite(agg["xyz"]).all() and {"intensity", "time", "label"} <= set(agg),
+             "[cli] aggregated.pcd")
+    return sizes, agg
+
+
+class FakeRos:
+    """A recording ROS facade (tests/test_ros_node.py's contract)."""
+
+    def __init__(self, params):
+        from lidarslam_tpu_torch.ros_node import PointCloud2, PointField
+
+        self.cloud_cls, self.field_cls = PointCloud2, PointField
+        self.params = params
+        self.published, self.subscribed, self.tf = {}, {}, []
+
+    def get_param(self, key, default=None):
+        return self.params if key == "" else self.params.get(key, default)
+
+    def now(self):
+        return time.perf_counter()
+
+    def Publisher(self, topic, kind, latch=False):
+        self.published.setdefault(topic, [])
+        return lambda msg, payload_cloud=None: self.published[topic].append(
+            payload_cloud if payload_cloud is not None else msg)
+
+    def Subscriber(self, topic, kind, cb):
+        self.subscribed[topic] = cb
+
+    def send_transform(self, msg):
+        self.tf.append(msg)
+
+
+def _within(tag, got, want, tol=DIRECT_M):
+    import numpy as np
+
+    _require(len(got) == len(want), f"[{tag}] {len(got)} poses for {len(want)}")
+    err = max(float(np.abs(g[:3, 3] - w[:3, 3]).max()) for g, w in zip(got, want))
+    rot = max(float(np.abs(g[:3, :3] - w[:3, :3]).max()) for g, w in zip(got, want))
+    _require(err <= tol and rot <= 1e-6, f"[{tag}] {err:.3e} m / {rot:.3e} (rotation) from "
+             "the direct run")
+    return err
+
+
+def _session_ended(slam, timeout_s=60.0):
+    """Wait until the server's handler of a closed client has processed its
+    `bye` (whose flush would otherwise end the next client's segment,
+    ROADMAP Queue 3, F10) and dropped its subscription."""
+    t_end = time.perf_counter() + timeout_s
+    while slam._subscribers:
+        _require(time.perf_counter() < t_end, "[server] a closed session did not end")
+        time.sleep(0.01)
+
+
+def _serve(slam, frames, steps):
+    """Client A streams sweeps 0-14, flushes and says bye; client B, on a
+    new connection, streams 15-29 and flushes, downloads the plane map,
+    sends command 99 (an `error`, the session stays open), a known command
+    (`ok`) and downloads the map again."""
+    import numpy as np
+
+    from lidarslam_tpu_torch.config import Keypoint
+    from lidarslam_tpu_torch.server import SlamClient, SlamServer
+
+    server = SlamServer(slam, port=0)
+    server.serve_background()
+    try:
+        port = server.server_address[1]
+        t0 = time.perf_counter()
+        a = SlamClient(port=port)
+        for f in frames[:SERVER_SPLIT]:
+            a.send_frame(f)
+        poses_a = list(a.flush())
+        a.close()
+        _session_ended(slam)
+        n_a = len(steps.events)
+        b = SlamClient(port=port)
+        for f in frames[SERVER_SPLIT:]:
+            b.send_frame(f)
+        poses_b = list(b.flush())
+        ms = 1000 * (time.perf_counter() - t0) / len(frames)
+        plane_map = b.get_map(keypoint=int(Keypoint.PLANE))
+        try:
+            b.command(99)
+            refused = None
+        except RuntimeError as exc:
+            refused = str(exc)
+        b.command(slam.ENABLE_SLAM_MAP_UPDATE)
+        again = b.get_map(keypoint=int(Keypoint.PLANE))
+        b.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+    _require(refused is not None and "unknown SLAM command 99" in refused,
+             f"[server] command 99 answered {refused!r}")
+    _require(all(np.array_equal(x, y) for x, y in zip(plane_map, again)),
+             "[server] the session did not go on after the error")
+    return poses_a, poses_b, plane_map, n_a, ms
+
+
+def phase_frontends(card: str, frames):
+    """The front ends on the card, on the 30 distorted sweeps as PCDs:
+    `cli run` (sync and `--follow`, each its own process), `aggregate`,
+    `extract`, `compare`; the server with two clients one after the other
+    and in sync mode; the ROS node; the ParaView core. Returns the k-NN
+    calls of each path and the phase's times."""
+    import os
+    import threading
+
+    import numpy as np
+    import yaml
+
+    from lidarslam_tpu_torch import Slam
+    from lidarslam_tpu_torch.config import Keypoint
+    from lidarslam_tpu_torch.core.se3 import quat_to_matrix
+    from lidarslam_tpu_torch.io import csv_log, native, pcd
+    from lidarslam_tpu_torch.io.yaml_config import load_config
+    from lidarslam_tpu_torch.paraview_plugin import SlamFilterCore, arrays_to_frame
+    from lidarslam_tpu_torch.ros_node import LidarSlamNode, frame_to_cloud
+
+    ref = np.load(CLI_REF_PATH)
+    _require(str(ref["ingest"]) == "native" and native.available(),
+             "[cli] the reference and the port both take the native ingest")
+    cfg = load_config(str(CLI_CONFIG))
+    launches, times = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "pcd").mkdir()
+        (tmp / "first").mkdir()
+        pcds = write_cli_pcds(frames, tmp / "pcd", pcd.save_pcd)
+        got_hash = [h for _, h in pcds]
+        _require(got_hash == [str(h) for h in ref["pcd_sha256"]],
+                 "[cli] the sweeps' PCDs are not the reference's: the renderer or the "
+                 "PCD writer moved")
+        for src, _ in pcds[:CLI_EXTRACT]:
+            os.link(src, tmp / "first" / src.name)
+
+        # ---- cli run, synchronous, in its own process on the card
+        out = tmp / "sync"
+        info, n, wall = _cli_process(
+            "cli run", ["run", "--config", str(CLI_CONFIG), "--pcd-dir", str(tmp / "pcd"),
+                        "--out", str(out), "--log-dir", str(out / "log"), "--aggregate",
+                        "--vtp", "--save-maps"], tmp / "sync_counts.json")
+        launches["cli run (sync)"] = n["calls"]
+        times["cli_sync_ms"] = info["mean_frame_ms"]
+        times["cli_sync_wall_s"] = wall
+        cmp = _check_cli_run("cli run", out, ref, "sync", tmp / "ref_sync")
+        sizes, agg = _check_cli_outputs(out)
+        _require(info["aggregated_points"] == len(agg["xyz"]) == int(ref["aggregated_points"]),
+                 f"[cli] aggregated {info['aggregated_points']} / {len(agg['xyz'])} points, "
+                 f"JAX {int(ref['aggregated_points'])}")
+        print(f"[cli] run --config {CLI_CONFIG.name} on {N_FRAMES} PCD sweeps ({card}): "
+              f"mean_frame_ms {info['mean_frame_ms']} (the run's own), process {wall:.1f} s; "
+              f"{cmp['max_position_error_m']} m / {cmp['max_angle_error_deg']} deg from JAX "
+              f"(compare), 0 failed; k-NN {n['calls']} wrapper calls = device executions "
+              f"{n['executions']}; maps {sizes}, aggregated {len(agg['xyz'])} points "
+              "(= JAX's); every output file parsed", flush=True)
+
+        # ---- the same run on the CPU (`--cpu`, in this process): the card's
+        # divergence from the CPU's on the same PCDs, beside each one's from JAX
+        t1 = time.perf_counter()
+        rc, cinfo = _cli_main(["--cpu", "run", "--config", str(CLI_CONFIG), "--pcd-dir",
+                               str(tmp / "pcd"), "--out", str(tmp / "cpu")])
+        cpu_wall = time.perf_counter() - t1
+        _require(rc == 0 and cinfo["frames"] == N_FRAMES, f"[cli] --cpu run: rc {rc}, {cinfo}")
+        rc, vs_cpu = _cli_main(["compare", "--res", str(out), "--ref", str(tmp / "cpu"),
+                                "--time-threshold", "1e9"])
+        _require(rc == 0 and vs_cpu["success"], f"[cli] card against --cpu: rc {rc}, {vs_cpu}")
+        rc, cpu_jax = _cli_main(["compare", "--res", str(tmp / "cpu"), "--ref",
+                                 str(tmp / "ref_sync"), "--time-threshold", "1e9"])
+        _require(rc == 0 and cpu_jax["success"], f"[cli] --cpu against JAX: rc {rc}, {cpu_jax}")
+        gap = [float(np.linalg.norm(a[1][:3, 3] - b[1][:3, 3])) for a, b in zip(
+            csv_log.read_poses_csv(out / "Poses.csv"),
+            csv_log.read_poses_csv(tmp / "cpu" / "Poses.csv"))]
+        times["cli_card_vs_cpu_m"] = vs_cpu["max_position_error_m"]
+        times["cli_cpu_vs_jax_m"] = cpu_jax["max_position_error_m"]
+        print(f"[cli] the same run with --cpu ({cpu_wall:.1f} s in this process): card "
+              f"{vs_cpu['max_position_error_m']} m / {vs_cpu['max_angle_error_deg']} deg from "
+              f"the CPU (compare), CPU {cpu_jax['max_position_error_m']} m / "
+              f"{cpu_jax['max_angle_error_deg']} deg from JAX, card "
+              f"{cmp['max_position_error_m']} m from JAX; card-CPU position gap (norm) at "
+              f"sweeps 0/9/19/29 {[f'{gap[i]:.2e}' for i in (0, 9, 19, 29)]}, largest "
+              f"{max(gap):.3e} m at sweep {int(np.argmax(gap))} ({card})", flush=True)
+
+        # ---- cli run --follow: the stream and the subscription
+        fol = tmp / "follow"
+        finfo, fn, fwall = _cli_process(
+            "cli run --follow", ["run", "--config", str(CLI_CONFIG), "--pcd-dir",
+                                 str(tmp / "pcd"), "--out", str(fol), "--follow"],
+            tmp / "follow_counts.json")
+        launches["cli run --follow (Python calls)"] = fn["calls"]
+        times["cli_follow_ms"] = finfo["mean_frame_ms"]
+        fcmp = _check_cli_run("cli run --follow", fol, ref, "follow", tmp / "ref_follow")
+        print(f"[cli] run --follow: mean_frame_ms {finfo['mean_frame_ms']} (host clock over "
+              f"the stream, flushes every 16), process {fwall:.1f} s; "
+              f"{fcmp['max_position_error_m']} m / {fcmp['max_angle_error_deg']} deg from "
+              f"JAX's --follow, 0 failed; k-NN {fn['calls']} wrapper calls + "
+              f"{fn['replayed']} replayed = device executions {fn['executions']}", flush=True)
+
+        # ---- aggregate and extract (in this process)
+        rc, ag = _cli_main(["aggregate", "--log-dir", str(out / "log"), "--trajectory",
+                            str(out / "Trajectory.csv"), "--out", str(tmp / "agg.pcd")])
+        off = pcd.load_pcd(tmp / "agg.pcd")
+        _require(rc == 0 and ag["points"] == len(off["xyz"]) == len(agg["xyz"])
+                 == int(ref["aggregate_points"]),
+                 f"[cli] aggregate: {ag} against {len(agg['xyz'])} / JAX "
+                 f"{int(ref['aggregate_points'])}")
+        agg_err = float(np.abs(off["xyz"].astype(np.float64) - agg["xyz"]).max())
+        _require(agg_err <= CLI_AGG_M and np.array_equal(off["label"], agg["label"]),
+                 f"[cli] aggregate {agg_err:.3e} m from the run's aggregated.pcd")
+        _, ext = _cli_main(["extract", "--config", str(CLI_CONFIG), "--pcd-dir",
+                            str(tmp / "first"), "--out", str(tmp / "ext"), "--blobs"])
+        summary = json.loads((tmp / "ext" / "extraction.json").read_text())
+        counts = np.asarray([[s["edge"], s["plane"], s["blob"]] for s in summary])
+        az = np.asarray([s["azimuthal_resolution"] for s in summary])
+        _require(ext["frames"] == CLI_EXTRACT and np.array_equal(counts, ref["extract_counts"])
+                 and np.abs(az - ref["extract_az"]).max() <= 1e-6,
+                 f"[cli] extract {counts.tolist()} / {az.tolist()} against JAX's "
+                 f"{ref['extract_counts'].tolist()} / {ref['extract_az'].tolist()}")
+        print(f"[cli] aggregate: {ag['points']} points (= JAX's), {agg_err:.3e} m from the "
+              f"run's aggregated.pcd point for point; extract on {CLI_EXTRACT} sweeps: "
+              f"edge/plane/blob {counts.tolist()} (= JAX's), azimuthal resolution within "
+              f"{np.abs(az - ref['extract_az']).max():.1e}", flush=True)
+
+    # ---- direct runs on the card, before the server (never during it)
+    def stream_direct():
+        s = Slam(cfg, device="cuda")
+        for f in frames[:SERVER_SPLIT]:
+            s.add_frame_async(f)
+        outs = s.flush()
+        for f in frames[SERVER_SPLIT:]:
+            s.add_frame_async(f)
+        outs += s.flush()
+        return [o["pose"] for o in outs], s.get_map_points(Keypoint.PLANE)
+
+    def sync_direct(items, record_at=None):
+        """Poses of a sync run; with `record_at`, also that sweep's k-NN
+        calls with their inputs (`_record_knn_calls`)."""
+        s = Slam(cfg, device="cuda")
+        poses, calls = [], []
+        for i, f in enumerate(items):
+            if i == record_at:
+                out, calls = _record_knn_calls(lambda: s.add_frame(f))
+            else:
+                out = s.add_frame(f)
+            poses.append(out["pose"])
+        return poses, calls
+
+    direct_stream, direct_map = stream_direct()
+    head = frames[:FRONT_SWEEPS]
+    direct_sync, path_calls = sync_direct(head, record_at=FRONT_SWEEPS - 1)
+    vendor = [(f["xyz"], (np.asarray(f["time"], np.float64) + f["stamp"]) * 1e6,
+               f["intensity"], f["laser_id"]) for f in head]
+    direct_pv, _ = sync_direct([arrays_to_frame(*a, time_factor=1e-6) for a in vendor])
+
+    # ---- the preset's own k-NN calls (one sweep of the sync path, the last
+    # of `head`): every call held against plain_knn, each shape timed
+    labels = [f"outdoor: Q={q.shape[0]} k={k} vs {index.pts.shape[0]} slots"
+              + ("" if r2 == float("inf") else f", r={r2 ** 0.5:g} m")
+              for index, q, _, k, r2 in path_calls]
+    _require(len(path_calls) > 0, "[cli] the recorded sweep made no k-NN call")
+    shapes, seen = [], set()
+    for label, call in zip(labels, path_calls):
+        if label in seen:
+            _hold_call(label, *call, tag="cli")
+            continue
+        seen.add(label)
+        shapes.append(_path_call_case(label, labels.count(label), *call, card, tag="cli"))
+    del path_calls
+
+    # ---- the server: the stream across two clients
+    main_thread = threading.current_thread().name
+    with GraphSteps() as steps:
+        (poses_a, poses_b, plane_map, n_a, server_ms), calls, executed = _knn_counts(
+            lambda: _serve(Slam(cfg, device="cuda"), frames, steps))
+    launches["server stream (Python calls)"] = calls
+    times["server_ms"] = server_ms
+    _hold_executions("server", calls, executed, steps.replayed_calls())
+    ev_a, ev_b = steps.events[:n_a], steps.events[n_a:]
+    threads_a, threads_b = {e[2] for e in ev_a}, {e[2] for e in ev_b}
+    _require([e[1] for e in ev_a].count("capture") == 1
+             and all(e[1] != "capture" for e in ev_b)
+             and any(e[1] == "replay" for e in ev_b)
+             and len(threads_a) == len(threads_b) == 1 and threads_a != threads_b
+             and main_thread not in threads_a | threads_b,
+             f"[server] the graph was not captured in client A's handler thread and "
+             f"replayed in client B's: {[(k, t) for _, k, t, _ in steps.events]}")
+    got = [np.asarray(m["pose"]).reshape(4, 4) for m in poses_a + poses_b]
+    _require([m["frame_index"] for m in poses_a + poses_b] == list(range(N_FRAMES)),
+             "[server] frame indices")
+    stream_err = _within("server stream", got, direct_stream)
+    jax_err = max(pose_errors(g, _ref_pose(ref["follow_poses"][i]))[0]
+                  for i, g in enumerate(got))
+    _require(jax_err <= REF_TOL_M, f"[server] {jax_err:.3e} m from JAX's --follow")
+    _require(all(np.array_equal(a, b) for a, b in zip(plane_map, direct_map[:2])),
+             "[server] get_map(planes) is not the direct run's get_map_points(PLANE)")
+    print(f"[server] two clients streamed {SERVER_SPLIT} + {N_FRAMES - SERVER_SPLIT} sweeps "
+          f"({card}): {server_ms:.2f} ms/frame (host clock, both clients' sends and "
+          f"flushes); graph captured in A's handler thread ({min(threads_a)}), replayed "
+          f"{sum(e[1] == 'replay' for e in ev_b)} times in B's ({min(threads_b)}); "
+          f"{stream_err:.3e} m from a "
+          f"direct stream with the same flushes, {jax_err:.3e} m from JAX's --follow; "
+          f"plane map {len(plane_map[0])} points = the direct run's; command 99 -> error, "
+          f"session open; k-NN {calls} wrapper calls + {steps.replayed_calls()} replayed = "
+          f"device executions {executed}", flush=True)
+
+    # ---- the server in sync mode
+    def serve_sync():
+        from lidarslam_tpu_torch.server import SlamClient, SlamServer
+
+        server = SlamServer(Slam(cfg, device="cuda"), port=0, stream=False)
+        server.serve_background()
+        try:
+            c = SlamClient(port=server.server_address[1])
+            for f in head:
+                c.send_frame(f)
+            msgs = list(c.flush())
+            c.close()
+        finally:
+            server.shutdown()
+            server.server_close()
+        return [np.asarray(m["pose"]).reshape(4, 4) for m in msgs]
+
+    got, calls, executed = _knn_counts(serve_sync)
+    launches["server sync"] = calls
+    _hold_executions("server sync", calls, executed)
+    sync_err = _within("server sync", got, direct_sync)
+
+    # ---- the ROS node (its Slam built from the yaml tree, on the card)
+    params = yaml.safe_load(CLI_CONFIG.read_text())
+
+    def ros_drive():
+        ros = FakeRos(params)
+        node = LidarSlamNode(ros)
+        _require(node.slam.device.type == "cuda", "[ros] the node's Slam is not on the card")
+        for f in head:
+            ros.subscribed["lidar_points"](frame_to_cloud(
+                f["xyz"], intensity=f["intensity"], time=f["time"], laser_id=f["laser_id"],
+                stamp=f["stamp"]))
+        return ros
+
+    ros, calls, executed = _knn_counts(ros_drive)
+    launches["ros node"] = calls
+    _hold_executions("ros node", calls, executed)
+    odoms = []
+    for m in ros.published["slam_odom"]:
+        p, o = m["pose"]["pose"]["position"], m["pose"]["pose"]["orientation"]
+        H = np.eye(4)
+        H[:3, :3] = quat_to_matrix(np.asarray([o["w"], o["x"], o["y"], o["z"]]))
+        H[:3, 3] = [p["x"], p["y"], p["z"]]
+        odoms.append(H)
+    ros_err = _within("ros node", odoms, direct_sync)
+    _require(len(ros.tf) == FRONT_SWEEPS and len(ros.published["maps/planes"]) == FRONT_SWEEPS,
+             "[ros] TF and map topics")
+
+    # ---- the ParaView core
+    def pv_drive():
+        core = SlamFilterCore(slam=Slam(cfg, device="cuda"))
+        core.identify(["adjustedtime", "intensity", "laser_id"])
+        for a in vendor:
+            out = core.process(*a)
+        return out["trajectory"]
+
+    traj, calls, executed = _knn_counts(pv_drive)
+    launches["paraview core"] = calls
+    _hold_executions("paraview core", calls, executed)
+    pv = []
+    for p, q in zip(traj["points"], traj["Orientation(Quaternion)"]):
+        H = np.eye(4)
+        H[:3, :3], H[:3, 3] = quat_to_matrix(q), p
+        pv.append(H)
+    pv_err = _within("paraview core", pv, direct_pv)
+    print(f"[front ends] {FRONT_SWEEPS} sweeps each, against direct sync runs on the same "
+          f"sweeps: server sync {sync_err:.3e} m, ROS node (PointCloud2 wire, its own "
+          f"Slam from the yaml tree) {ros_err:.3e} m, ParaView core (Velodyne arrays) "
+          f"{pv_err:.3e} m; k-NN wrapper calls = device executions on each", flush=True)
+    return {"launches": launches, "times": times, "shapes": shapes,
+            "max_abs_err": max(s_["max_abs_err"] for s_ in shapes)}
+
+
+def _ref_pose(row):
+    """A Poses.csv row (time x y z rX rY rZ) as a (4,4) pose."""
+    from lidarslam_tpu_torch.core import se3
+
+    return se3.pose_to_hmat(row[1:7])
+
+
 def main() -> int:
     if not (ROOT / "lidarslam_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: lidarslam_tpu_torch/ not found beside this script; "
@@ -2351,6 +2979,10 @@ def main() -> int:
         with numpy_ingest():    # vlp16_pgo_ref.npz, as phase 6's, on the numpy ingest
             phase_pgo(card, distorted, full, ckpt_dir)
             done(9)
+    t0 = time.perf_counter()
+    front = phase_frontends(card, distorted)    # the native ingest, as vlp16_cli_ref.npz
+    print(f"[time] phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
+    done(10)
     pf = ext["per_frame"]
     # what sets the per-frame bound: the side holding most of it
     by_ops = sum(s["bound_ms"] * s["calls_per_frame"] for s in ext["shapes"]
@@ -2365,13 +2997,13 @@ def main() -> int:
         "replaces": "lidarslam_tpu/ops/pallas_knn.py:121",
         "launches": ext["sync_launches"],
         "max_abs_err": max(rec["max_abs_err"], full["max_abs_err"], ext["max_abs_err"],
-                           rig["max_abs_err"]),
+                           rig["max_abs_err"], front["max_abs_err"]),
         "ms": pf["ms"], "plain_ms": pf["plain_ms"], "bound_ms": pf["bound_ms"],
         "bound_by": bound_by, "library_ms": pf["library_ms"],
         "per": f"one streamed frame of ext_config ({len(EXT_CALLS)} calls)",
         "launch_ms": pf["launch_ms"], "device_ms": pf["device_ms"],
         "shapes": ext["shapes"], "full_shapes": full["shapes"],
-        "rig_shapes": rig["shapes"],
+        "rig_shapes": rig["shapes"], "outdoor_shapes": front["shapes"],
         "launches_by_path": {"bench sync": sync["launches"],
                              "bench stream (Python calls)": stream["calls"],
                              "full sync": full["sync_launches"],
@@ -2379,7 +3011,8 @@ def main() -> int:
                              "ext sync": ext["sync_launches"],
                              "ext stream (Python calls)": ext["stream_calls"],
                              "rig sync": rig["sync_launches"],
-                             "rig stream (Python calls)": rig["stream_calls"]},
+                             "rig stream (Python calls)": rig["stream_calls"],
+                             **front["launches"]},
         "full_sync_launches_by_shape": full["sync_by_shape"],
         "ext_sync_launches_by_shape": ext["sync_by_shape"],
         "bench_full_map": {"ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -2401,6 +3034,7 @@ def main() -> int:
         "host_ingest_ms_per_sweep": ingest["ingest_ms"],
         "bench_stream_native_ms": {"inline": ingest["inline_ms"],
                                    "worker": ingest["worker_ms"]},
+        "frontends": front["times"],
         "stream_frames_profiled": WINDOW}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

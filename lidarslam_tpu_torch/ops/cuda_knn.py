@@ -139,29 +139,39 @@ def plain_knn(xyz, valid, queries, k: int, q_valid=None):
     Returns (d2 (Q, k) f32, idx (Q, k) i32, nbr (Q, k, 3) f32)."""
     if sys.byteorder != "little":
         raise RuntimeError("plain_knn writes its int64 keys as little-endian words")
-    M = xyz.shape[0]
     Q = queries.shape[0]
     dev = queries.device
     qx, qy, qz = queries[:, 0:1], queries[:, 1:2], queries[:, 2:3]
     inf = float("inf")
-    chunk = min(PLAIN_CHUNK, M)
+    if dev.type == "cpu":
+        # on the CPU the scan runs over the valid slots alone, under their
+        # own slot numbers: an invalid slot's key (+inf, slot) never sorts
+        # before the initial (+inf, 0) ones, so the best k are the same
+        # (on a GPU the compaction would wait for the device)
+        live = torch.nonzero(valid).flatten()
+        pts, ok, slots = xyz[live], None, live.to(torch.int32)
+    else:
+        pts, ok = xyz, valid
+        slots = torch.arange(0, xyz.shape[0], dtype=torch.int32, device=dev)
+    M = pts.shape[0]
+    chunk = max(min(PLAIN_CHUNK, M), 1)
     cand = torch.empty((Q, k + chunk), dtype=torch.int64, device=dev)
     words = cand.view(torch.int32).view(Q, k + chunk, 2)
     d2 = torch.empty((Q, chunk), dtype=torch.float32, device=dev)
     sq = torch.empty((Q, chunk), dtype=torch.float32, device=dev)
-    slots = torch.arange(0, M, dtype=torch.int32, device=dev)
     cand[:, :k] = 0x7F800000 << 32
     for c0 in range(0, M, chunk):
         c1 = min(c0 + chunk, M)
         n = c1 - c0
         d, s = d2[:, :n], sq[:, :n]
-        torch.sub(qx, xyz[c0:c1, 0][None, :], out=d)
+        torch.sub(qx, pts[c0:c1, 0][None, :], out=d)
         d.mul_(d)
-        torch.sub(qy, xyz[c0:c1, 1][None, :], out=s)
+        torch.sub(qy, pts[c0:c1, 1][None, :], out=s)
         d.add_(s.mul_(s))
-        torch.sub(qz, xyz[c0:c1, 2][None, :], out=s)
+        torch.sub(qz, pts[c0:c1, 2][None, :], out=s)
         d.add_(s.mul_(s))
-        d.masked_fill_(~valid[c0:c1][None, :], inf)
+        if ok is not None:
+            d.masked_fill_(~ok[c0:c1][None, :], inf)
         words[:, k:k + n, 0] = slots[None, c0:c1]
         words[:, k:k + n, 1] = d.view(torch.int32)
         cand[:, :k] = torch.topk(cand[:, :k + n], k, dim=1, largest=False,

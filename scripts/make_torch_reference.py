@@ -2,7 +2,7 @@
 """Write the JAX package's VLP-16 trajectories for the PyTorch port.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_reference.py \
-        [--which bench|full|ext|float|rig|pgo|all]
+        [--which bench|full|ext|float|rig|pgo|cli|all]
 
 Runs the JAX package's `Slam` on the CPU over the first `chip_smoke.N_FRAMES`
 (30) sweeps of the bench sequence (weaving street trajectory), through
@@ -40,7 +40,25 @@ Runs the JAX package's `Slam` on the CPU over the first `chip_smoke.N_FRAMES`
   distance over sweeps 15-29 between the uninterrupted run and a fresh
   Slam continued from the checkpoint written after 15 sweeps, as loaded
   (JAX's checkpoint holds no keypoints) and with the previous sweep's
-  keypoints put back by hand (ROADMAP Queue 3, D7).
+  keypoints put back by hand (ROADMAP Queue 3, D7);
+- `cli` (~4 min): the command line on the CPU, as a user with
+  recorded sweeps runs it: the 30 distorted sweeps written as binary PCDs
+  (intensity, time, laser_id; `chip_smoke.write_cli_pcds`), then in-process
+  `lidarslam_tpu.cli.main(["--cpu", "run", "--config",
+  "configs/slam_config_outdoor.yaml", "--pcd-dir", ..., "--log-dir", ...,
+  "--aggregate"])`, the same with `--follow`, `aggregate` on the
+  synchronous run's keypoint log and Trajectory.csv, and `extract --config
+  ... --blobs` on a directory of the first `chip_smoke.CLI_EXTRACT` sweeps
+  (the CLI's `--limit` reaches only `--kitti-dir`) -> `vlp16_cli_ref.npz`:
+  each PCD's
+  sha256 (`pcd_sha256`), both runs' Poses.csv rows (`sync_poses`,
+  `follow_poses`: time x y z rX rY rZ), their Evaluators overlap and
+  n_matches columns and failed-frame counts (from Trajectory.csv), the
+  run's and the command's aggregated point counts (`aggregated_points`,
+  `aggregate_points`), the per-frame extraction counts (`extract_counts`:
+  edge, plane, blob) and azimuthal resolutions (`extract_az`), and
+  `ingest`. The CLI has no ingest switch, so this set takes the native
+  ingest, and requires it.
 
 Each holds per frame the poses (float64 4x4), `n_matches`, `failure`,
 `overlap`, `comply_motion_limits`, `stamps` and, in the files written
@@ -234,11 +252,82 @@ def _pgo(slam, frames, path):
           file=sys.stderr)
 
 
+def _cli(frames, path):
+    """The JAX package's CLI on the outdoor preset over the sweeps as PCDs
+    (see the docstring's `cli`)."""
+    import contextlib
+    import io
+    import json
+    import shutil
+    import tempfile
+
+    import chip_smoke
+    from lidarslam_tpu import cli
+    from lidarslam_tpu.io import csv_log, native, pcd
+
+    if not native.available():
+        raise SystemExit("the JAX package's native ingest did not load: "
+                         "the CLI reference takes it (no ingest switch)")
+    tmp = Path(tempfile.mkdtemp())
+    (tmp / "pcd").mkdir()
+    (tmp / "first").mkdir()
+    pcds = chip_smoke.write_cli_pcds(frames, tmp / "pcd", pcd.save_pcd)
+    for src, _ in pcds[:chip_smoke.CLI_EXTRACT]:
+        shutil.copy(src, tmp / "first" / src.name)
+    config = str(ROOT / "configs" / "slam_config_outdoor.yaml")
+
+    def run(*argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--cpu", *argv])
+        if rc:
+            raise SystemExit(f"the JAX CLI {argv[0]} exited {rc}")
+        print(f"cli {argv[0]}{' --follow' if '--follow' in argv else ''}: "
+              f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    rec = {"pcd_sha256": np.asarray([h for _, h in pcds]), "ingest": np.asarray("native")}
+    for mode, extra in (("sync", ["--aggregate"]), ("follow", ["--follow"])):
+        out = tmp / mode
+        info = run("run", "--config", config, "--pcd-dir", str(tmp / "pcd"), "--out",
+                   str(out), "--log-dir", str(out / "log"), *extra)
+        rows = np.loadtxt(out / "Poses.csv", ndmin=2)
+        ev = csv_log.read_evaluators_csv(out / "Evaluators.csv")
+        with open(out / "Trajectory.csv") as f:
+            header = f.readline().strip().split(",")
+        failed = np.loadtxt(out / "Trajectory.csv", delimiter=",", skiprows=1,
+                            ndmin=2)[:, header.index("failure")]
+        rec.update({f"{mode}_poses": rows, f"{mode}_overlap": ev[:, 1],
+                    f"{mode}_n_matches": ev[:, 2].astype(np.int64),
+                    f"{mode}_failed": np.int64(failed.sum())})
+        if mode == "sync":
+            rec["aggregated_points"] = np.int64(info["aggregated_points"])
+            agg = run("aggregate", "--log-dir", str(out / "log"), "--trajectory",
+                      str(out / "Trajectory.csv"), "--out", str(tmp / "agg.pcd"))
+            rec["aggregate_points"] = np.int64(agg["points"])
+        print(f"{mode}: {len(rows)} poses, {int(failed.sum())} failed, n_matches "
+              f"{ev[:, 2].astype(int).tolist()}", file=sys.stderr)
+    run("extract", "--config", config, "--pcd-dir", str(tmp / "first"), "--out",
+        str(tmp / "ext"), "--blobs")
+    summary = json.loads((tmp / "ext" / "extraction.json").read_text())
+    rec["extract_counts"] = np.asarray([[s["edge"], s["plane"], s["blob"]] for s in summary],
+                                       np.int64)
+    rec["extract_az"] = np.asarray([s["azimuthal_resolution"] for s in summary])
+    if rec["aggregate_points"] != rec["aggregated_points"]:
+        raise SystemExit(f"aggregate {rec['aggregate_points']} points, the run "
+                         f"{rec['aggregated_points']}")
+    np.savez_compressed(path, **rec)
+    shutil.rmtree(tmp)
+    print(f"wrote {path} ({path.stat().st_size} B): aggregated {rec['aggregated_points']}, "
+          f"extraction {rec['extract_counts'].tolist()}", file=sys.stderr)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=str(ROOT / "lidarslam_tpu_torch" / "data"))
-    ap.add_argument("--which", choices=("bench", "full", "ext", "float", "rig", "pgo", "all"),
-                    default="all")
+    ap.add_argument("--which", choices=("bench", "full", "ext", "float", "rig", "pgo", "cli",
+                                        "all"), default="all")
     args = ap.parse_args()
 
     import jax
@@ -289,6 +378,9 @@ def main():
     if args.which in ("pgo", "all"):
         native.available = lambda: False
         _pgo(Slam(full_jax_config(cfg)), frames(True), out / "vlp16_pgo_ref.npz")
+    if args.which in ("cli", "all"):
+        native.available = native_available
+        _cli(frames(True), out / "vlp16_cli_ref.npz")
     print(f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
 

@@ -678,3 +678,34 @@ def test_cuda_checkpoint_round_trip_and_pgo(cuda, tmp_path):
     outs = a.flush()
     assert a._graph is graph
     assert len(outs) == 4 and all(not o["failure"] for o in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("follow", [False, True])
+def test_cuda_cli_run_matches_cpu(cuda, tmp_path, capsys, follow):
+    """`cli run` on the card (no `--cpu`) against `--cpu` on the same 5
+    synthetic sweeps, held by `cli compare` to the CI's 0.01 m / 5 deg;
+    `extract`'s counts equal on both devices."""
+    import json
+
+    from lidarslam_tpu_torch import cli
+
+    run = ["run", "--synthetic", "5", "--max-ring-points", "1024", "--max-keypoints", "1024"]
+    run += ["--follow"] if follow else ["--aggregate", "--log-dir", str(tmp_path / "log")]
+    assert cli.main(run + ["--out", str(tmp_path / "gpu")]) == 0
+    assert cli.main(["--cpu", *run, "--out", str(tmp_path / "cpu")]) == 0
+    capsys.readouterr()
+    assert cli.main(["compare", "--res", str(tmp_path / "gpu"), "--ref", str(tmp_path / "cpu"),
+                     "--time-threshold", "1e9"]) == 0
+    cmp = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert cmp["success"] and cmp["n_compared"] == 5, cmp
+    with capsys.disabled():
+        print(f"\n[cli run{' --follow' if follow else ''}] card against --cpu on 5 synthetic "
+              f"sweeps: {cmp['max_position_error_m']} m / {cmp['max_angle_error_deg']} deg")
+    for dev in ([], ["--cpu"]):
+        assert cli.main([*dev, "extract", "--synthetic", "2", "--blobs",
+                         "--out", str(tmp_path / f"ext{len(dev)}")]) == 0
+    got, want = ((tmp_path / f"ext{i}" / "extraction.json").read_text() for i in (0, 1))
+    for g, w in zip(json.loads(got), json.loads(want)):
+        assert abs(g.pop("azimuthal_resolution") - w.pop("azimuthal_resolution")) < 1e-6
+        assert g == w
