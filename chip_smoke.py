@@ -147,11 +147,38 @@ the CUDA toolkit. Phases, each printed as it goes:
    ParaView core (Velodyne arrays) on 10 sweeps, each within 1e-6 m of a
    direct sync run on the sweeps it ingests. On every path the k-NN
    kernels ran once per wrapper call outside a graph plus the calls the
-   graphs replayed, counted on the device.
+   graphs replayed, counted on the device;
+11. the mesh (`phase_mesh`): `parallel.launch` starts a gloo group of
+   MESH_GLOO_WORLD ranks sharing cuda:0 (NCCL refuses two ranks on one
+   card; the collectives are host-staged, so their times are not NCCL's
+   over NVLink) and then an NCCL group at min(device_count, 4) ranks, each
+   rank printing its backend and device. The gloo group: the slab-sharded
+   map's insert, k-NN and a migrating roll against the single-device map
+   on the card (contents equal); the bench drive (MESH_FRAMES sweeps)
+   through `Slam(cfg, mesh=...).add_frame` keypoint-sharded, with
+   `shard_extraction` and with `shard_maps`, each 0 failed, every pose
+   within 1e-3 m / 0.01 rad of phase 4's run and of
+   vlp16_mesh_ref.npz (the JAX package on a 2-device CPU mesh), the ranks
+   bit-equal, its k-NN wrapper calls equal to each kernel's executions
+   counted on the device from 0 just before the drive, its ms/frame beside
+   phase 4's; the bench stream on the mesh (eager windows of 8) within
+   1e-3 m of the mesh's sync path, with its ms/frame; the full drive with
+   `shard_maps` within 1e-3 m of phase 6's run and of JAX's mesh run,
+   overlap within 0.01; 10 rig acquisitions through `add_frames` with
+   `shard_maps`, 0 failed; the 1000-pose Schur over 8 segments sharded
+   over the ranks within 1e-10 relative of the unsharded solve, both
+   timed. The NCCL group: the bench drive with `shard_maps`, within 1e-3 m
+   of phase 4's configuration without `reuse_knn` (what `shard_maps` runs)
+   and of JAX's mesh run. Every drive of either group records the k-NN
+   calls of one frame, and rank 0 holds each call shape of its group (a
+   rank's localization slice against the whole submap, the slab scans of
+   the gathered queries, the ego registration, the overlap) against the
+   plain version on the path's own inputs, timed beside its bound.
 
 Phases 4-7 and 9 pin the port's host ingest to numpy (`numpy_ingest`), on
-which their JAX references were made; phase 5's native runs and phases 8
-and 10 take the native ingest.
+which their JAX references were made, as do phase 11's bench and full
+drives; phase 5's native runs, phases 8 and 10 and phase 11's rig take the
+native ingest.
 
 Every count of k-NN kernel executions above is the kernels' own, kept on
 the device (`cuda_knn.executions`) and reset just before the profiled
@@ -929,7 +956,7 @@ def phase_slice(frames):
           f"{prof['knn_ms']:.4f} ms/frame ({100 * prof['knn_ms'] / prof['busy_ms']:.2f}% "
           f"of device busy), executions {prof['knn']} (device counts; traced"
           f" {prof['knn_traced']})", flush=True)
-    return {"launches": launches, "ms_frame": ms_frame, **prof}
+    return {"launches": launches, "ms_frame": ms_frame, "results": results, **prof}
 
 
 def phase_stream(frames, card: str, sync: dict):
@@ -1203,10 +1230,26 @@ FULL_CALLS = ((("ego edges", 8), ("ego planes", 5)) * 4
 OVERLAP_TOL = 0.01
 
 
-def _record_knn_calls(fn, keep_inputs=True):
+def _knn_site():
+    """What the k-NN launch under way scans, read from the call stack: the
+    previous sweep's keypoints (`ego`), the overlap's sample (`overlap`),
+    this rank's slab of a slab-sharded map (`slab`) or a whole submap."""
+    names, f = set(), sys._getframe(2)
+    while f is not None:
+        names.add(f.f_code.co_name)
+        f = f.f_back
+    if "_ego_registration" in names:
+        return "ego"
+    if "lcp_overlap" in names:
+        return "overlap"
+    return "slab" if "shard_knn" in names else "submap"
+
+
+def _record_knn_calls(fn, keep_inputs=True, site=False):
     """Run `fn` watching every k-NN launch: returns (fn's result, one entry
     per launch in order), the entry a copy of the launch's inputs (index,
-    queries, q_valid, k, r2), or with `keep_inputs=False` its shape label."""
+    queries, q_valid, k, r2), or with `keep_inputs=False` its shape label.
+    With `site=True` each entry starts with the call's `_knn_site()`."""
     from lidarslam_tpu_torch.ops import cuda_knn
 
     calls = []
@@ -1214,11 +1257,13 @@ def _record_knn_calls(fn, keep_inputs=True):
 
     def recording(index, queries, q_valid, order, k, r2):
         if keep_inputs:
-            calls.append((cuda_knn.KnnIndex(*(t.clone() for t in index)), queries.clone(),
-                          q_valid.clone(), k, r2))
+            entry = (cuda_knn.KnnIndex(*(t.clone() for t in index)), queries.clone(),
+                     q_valid.clone(), k, r2)
         else:
             radius = "" if r2 == float("inf") else f" r={r2 ** 0.5:g} m"
-            calls.append(f"Q={queries.shape[0]} k={k} slots={index.pts.shape[0]}{radius}")
+            entry = f"Q={queries.shape[0]} k={k} slots={index.pts.shape[0]}{radius}"
+        calls.append(((_knn_site(),) + entry if keep_inputs else (_knn_site(), entry))
+                     if site else entry)
         return real(index, queries, q_valid, order, k, r2)
 
     cuda_knn.launch = recording
@@ -1499,7 +1544,7 @@ def phase_full(card: str, frames, ckpt_dir: Path):
             "stream_knn_ms": prof["knn_ms"], "sync_knn_ms": sync_prof["knn_ms"],
             "shapes": shapes, "per_frame": per_frame,
             "max_abs_err": max(s_["max_abs_err"] for s_ in shapes),
-            "sync_slam": sync_slam, "sync_results": sync_results}
+            "sync_slam": sync_slam, "sync_results": sync_results, "sync_ms": sync_ms}
 
 
 PGO_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_pgo_ref.npz"
@@ -2917,6 +2962,360 @@ def phase_frontends(card: str, frames):
             "max_abs_err": max(s_["max_abs_err"] for s_ in shapes)}
 
 
+MESH_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_mesh_ref.npz"
+MESH_GLOO_WORLD = 2         # gloo ranks sharing cuda:0 (NCCL refuses two on one card)
+MESH_FRAMES = 30            # bench sweeps per mode
+MESH_RIG_ACQ = 10           # rig acquisitions on the mesh
+MESH_TIMEOUT_S = 900        # one launch of phase 11's ranks
+MESH_TOL_M, MESH_TOL_RAD = 1e-3, 0.01
+MESH_PGO_REL = 1e-10        # the sharded Schur against the unsharded one
+MESH_MODES = (("kp", {}), ("ext", {"shard_extraction": True}), ("maps", {"shard_maps": True}))
+MESH_MAP_BATCHES = ((20000, 0), (20000, 1), (20000, 2))   # seeded points per insert
+
+
+def _mesh_map_ops(mesh):
+    """Insert, k-NN and a migrating roll on the slab-sharded map against the
+    port's single-device map, on the card, on seeded points in a 65,536-slot
+    window: returns (contents equal, k-NN d2 equal, roll contents equal,
+    the number of points that changed slab in the roll)."""
+    import numpy as np
+    import torch
+
+    from lidarslam_tpu_torch.config import MapConfig
+    from lidarslam_tpu_torch.ops import voxel_map
+    from lidarslam_tpu_torch.parallel import sharded_map
+
+    cfg = MapConfig(leaf_size=0.3, voxel_resolution=3.0, grid_size=16, capacity=1 << 16)
+    dev = mesh.device
+    local = sharded_map.empty_slab(cfg, mesh.size, dev)
+    single = voxel_map.VoxelMap.empty(cfg, dev)
+    half = voxel_map.half_extent(cfg)
+    for n, seed in MESH_MAP_BATCHES:
+        rng = np.random.default_rng(seed)
+        xyz = torch.from_numpy(rng.uniform(-half, half, (n, 3)).astype(np.float32)).to(dev)
+        inten = torch.from_numpy(rng.uniform(0, 100, n).astype(np.float32)).to(dev)
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        local = sharded_map.add_points_sharded(mesh, local, xyz, inten, float(seed), ones,
+                                               float(seed), cfg)
+        single = voxel_map.add_points(single, xyz, inten, float(seed), ones, float(seed), cfg)
+
+    def content(m):
+        v = m.valid.cpu().numpy()
+        a = np.concatenate([m.xyz.cpu().numpy()[v], m.intensity.cpu().numpy()[v, None],
+                            m.count.cpu().numpy()[v, None].astype(np.float32)], axis=1)
+        return a[np.lexsort(a.T[::-1])]
+
+    same_insert = np.array_equal(content(sharded_map.gather_slabs(mesh, local)),
+                                 content(single))
+    q = torch.from_numpy(np.random.default_rng(9).uniform(
+        -half / 2, half / 2, (4096, 3)).astype(np.float32)).to(dev)
+    d2, _, _ = sharded_map.knn_sharded(mesh, local, q, 5, cfg)
+    d2_single, _, _ = voxel_map.brute_knn(
+        voxel_map.SubmapView(xyz=single.xyz, ring=None, valid=single.valid), q, 5)
+    offset = torch.tensor([2, 1, 0], dtype=torch.int32, device=dev)
+    kx0, _, _ = voxel_map._leaf_keys(local.xyz, local.valid, cfg)
+    rolled = sharded_map.roll_sharded(mesh, local, offset, cfg)
+    moved = int(mesh.psum(torch.sum(
+        local.valid & (sharded_map.owner_of(kx0 - 2 * 10, cfg, mesh.size) != mesh.rank)
+        & (kx0 - 2 * 10 >= 0))))
+    same_roll = np.array_equal(content(sharded_map.gather_slabs(mesh, rolled)),
+                               content(voxel_map.roll_by_offset(single, offset, cfg)))
+    return {"insert": bool(same_insert), "knn": bool(torch.equal(d2, d2_single)),
+            "roll": bool(same_roll), "migrated": moved,
+            "points": int(single.valid.sum())}
+
+
+def _mesh_drive(slam, frames, add="add_frame", record_at=None, keep_inputs=False):
+    """`frames` through `slam.<add>` with a device sync after each: results,
+    the median ms of the frames after the first, and the k-NN calls of frame
+    `record_at` with their sites (`_record_knn_calls`; [] when None)."""
+    import torch
+
+    results, wall, calls = [], [], []
+    for i, f in enumerate(frames):
+        t0 = time.perf_counter()
+        if i == record_at:
+            r, calls = _record_knn_calls(lambda: getattr(slam, add)(f),
+                                         keep_inputs=keep_inputs, site=True)
+        else:
+            r = getattr(slam, add)(f)
+        results.append(r)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    return results, 1000 * statistics.median(wall[1:]), calls
+
+
+def _mesh_call_cases(recorded, card):
+    """Each distinct k-NN call shape of the recorded mesh drives ((drive,
+    calls) pairs from `_mesh_drive` with inputs) held against plain_knn on
+    the path's inputs, timed and bounded (`_path_call_case`), with the
+    drives that gave it."""
+    seen = {}
+    for drive, calls in recorded:
+        for site, index, q, q_valid, k, r2 in calls:
+            label = (f"{site} Q={q.shape[0]} k={k} slots={index.pts.shape[0]}"
+                     + ("" if r2 == float("inf") else f" r={r2 ** 0.5:g} m"))
+            entry = seen.setdefault(label, {"drives": {}, "call": (index, q, q_valid, k, r2)})
+            entry["drives"][drive] = entry["drives"].get(drive, 0) + 1
+    shapes = []
+    for label, entry in seen.items():
+        per_frame = next(iter(entry["drives"].values()))
+        case = _path_call_case(f"{label} ({', '.join(entry['drives'])})", per_frame,
+                               *entry["call"], card, tag="mesh")
+        shapes.append({**case, "drives": entry["drives"]})
+    return shapes
+
+
+def _mesh_record(results, ms):
+    import numpy as np
+
+    return {"poses": np.stack([r["pose"] for r in results]),
+            "n_matches": [int(r["n_matches"]) for r in results],
+            "overlap": [float(r["overlap"]) for r in results],
+            "failed": sum(bool(r["failure"]) for r in results), "ms_frame": ms}
+
+
+def _mesh_rank(mesh, frames_path: str, n_frames: int, card: str):
+    """Phase 11 on one rank: the gloo group runs everything below, the NCCL
+    group the bench drive with `shard_maps`. Returns plain values. Each
+    drive records the k-NN calls of frame PROFILED.start (its inputs on rank
+    0), and rank 0 holds each call shape of its group's drives against the
+    plain version on those inputs, times it and bounds it."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from lidarslam_tpu_torch import Slam
+    from lidarslam_tpu_torch.backend.posegraph_device import optimize_pose_graph_device
+    from lidarslam_tpu_torch.ops import cuda_knn
+
+    gloo = mesh.backend == "gloo"
+    group = f"{mesh.backend} x{mesh.size}"
+    print(f"[mesh] {mesh.backend} rank {mesh.rank} of {mesh.size} on {mesh.device} "
+          f"({torch.cuda.get_device_name(mesh.device)})", flush=True)
+    with open(frames_path, "rb") as fh:
+        data = pickle.load(fh)
+    out = {"device": str(mesh.device)}
+    recorded = []
+    keep = mesh.rank == 0
+    if gloo:
+        out["map_ops"] = _mesh_map_ops(mesh)
+    with numpy_ingest():
+        for name, kw in (MESH_MODES if gloo else MESH_MODES[2:]):
+            slam = Slam(bench_config(16, 1800), mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            cuda_knn.LAUNCHES = 0
+            cuda_knn.reset_executions(mesh.device)
+            res, ms, calls = _mesh_drive(slam, data["bench"][:n_frames],
+                                         record_at=PROFILED.start, keep_inputs=keep)
+            out[name] = {**_mesh_record(res, ms), "launches": cuda_knn.LAUNCHES,
+                         "executions": cuda_knn.executions(mesh.device)}
+            recorded.append((f"{group} bench {name}", calls))
+            if mesh.rank == 0:
+                print(f"[mesh] {group} bench {name}: {ms:.2f} ms/frame, "
+                      f"{cuda_knn.LAUNCHES} k-NN wrapper calls ({card})", flush=True)
+        if not gloo:
+            if keep:
+                out["shapes"] = _mesh_call_cases(recorded, card)
+            return out
+        slam = Slam(bench_config(16, 1800), mesh=mesh)
+        ms, outs = _stream_run_ms(slam, data["bench"])
+        out["stream"] = _mesh_record(outs, ms)
+        slam = Slam(full_config(), mesh=mesh, shard_maps=True)
+        results, ms, calls = _mesh_drive(slam, data["full"], record_at=PROFILED.start,
+                                         keep_inputs=keep)
+        out["full"] = _mesh_record(results, ms)
+        recorded.append((f"{group} full maps", calls))
+    acq, offset = render_rig(MESH_RIG_ACQ)
+    slam = Slam(rig_config(), mesh=mesh, shard_maps=True)
+    slam.set_base_to_lidar_offset(1, offset)
+    res, ms, _ = _mesh_drive(slam, acq, add="add_frames")
+    out["rig"] = _mesh_record(res, ms)
+
+    poses, times, covs, gps, gps_t, _ = pgo_graph(PGO_POSES)
+
+    def solve(m):
+        opt, _ = optimize_pose_graph_device(poses, times, covs, gps, gps_t,
+                                            n_segments=PGO_SEGMENTS, device=mesh.device, mesh=m)
+        return np.stack(opt)
+
+    out["pgo_ms"], sharded_x = _wall_median_ms(lambda: solve(mesh), reps=3)
+    if mesh.rank != 0:
+        return out
+    out["pgo_unsharded_ms"], x = _wall_median_ms(lambda: solve(None), reps=3)
+    out["pgo_rel"] = float(np.abs(sharded_x - x).max() / np.abs(x).max())
+    out["shapes"] = _mesh_call_cases(recorded, card)
+    return out
+
+
+def _without_reuse(cfg):
+    """`cfg` with the localization's `reuse_knn` off: the slab-sharded maps'
+    k-NN merges every slab's candidates in each ICP round, so the JAX
+    package (and the port) turn reuse off there (`ops/icp.py`), and a
+    `shard_maps` run is held against a single-device run without it."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, loc_matching=dataclasses.replace(cfg.loc_matching,
+                                                                     reuse_knn=False))
+
+
+def _single_run(cfg, frames):
+    """One single-device `add_frame` run on the card, on the numpy ingest:
+    its poses."""
+    import numpy as np
+
+    from lidarslam_tpu_torch import Slam
+
+    with numpy_ingest():
+        slam = Slam(cfg, device="cuda")
+        return np.stack([slam.add_frame(f)["pose"] for f in frames])
+
+
+def _mesh_check_poses(tag, poses, want, what):
+    """Every pose within MESH_TOL_M / MESH_TOL_RAD of `want`; the worst."""
+    import numpy as np
+
+    errs = [pose_errors(a, b) for a, b in zip(poses, want)]
+    worst = (max(e[0] for e in errs), max(e[1] for e in errs))
+    _require(len(errs) == len(want) and worst[0] <= MESH_TOL_M
+             and np.deg2rad(worst[1]) <= MESH_TOL_RAD,
+             f"[{tag}] {worst[0]:.3e} m / {worst[1]:.3e} deg from {what}")
+    return worst
+
+
+def _mesh_ranks_equal(tag, ranks, key):
+    import numpy as np
+
+    for r in ranks[1:]:
+        _require(np.array_equal(r[key]["poses"], ranks[0][key]["poses"]),
+                 f"[{tag}] {key}: the ranks' poses differ")
+
+
+def phase_mesh(card: str, frames, distorted, sync: dict, full: dict):
+    """The mesh on the card (see the module docstring, phase 11): a gloo
+    group of MESH_GLOO_WORLD ranks sharing cuda:0 and an NCCL group at
+    min(device_count, 4), each started by `parallel.launch`."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from lidarslam_tpu_torch.parallel.launch import launch
+
+    ref = np.load(MESH_REF_PATH)
+    _require(int(ref["mesh_devices"]) == MESH_GLOO_WORLD,
+             f"{MESH_REF_PATH.name} was made on {int(ref['mesh_devices'])} devices")
+    n = MESH_FRAMES
+    single = np.stack([r["pose"] for r in sync["results"]])
+    full_single = np.stack([r["pose"] for r in full["sync_results"]])
+    t0 = time.perf_counter()
+    no_reuse = _single_run(_without_reuse(bench_config(16, 1800)), frames[:n])
+    full_no_reuse = _single_run(_without_reuse(full_config()), distorted)
+    print(f"[mesh] single-device runs without reuse_knn (what shard_maps runs): bench "
+          f"{_max_position_diff(no_reuse, single[:n]):.3e} m and full "
+          f"{_max_position_diff(full_no_reuse, full_single):.3e} m from phases 4 and 6; "
+          f"JAX's own mesh run with shard_maps is "
+          f"{_max_position_diff(ref['bench_maps_poses'], np.load(REF_PATH)['poses']):.3e} / "
+          f"{_max_position_diff(ref['full_maps_poses'], np.load(FULL_REF_PATH)['poses']):.3e} "
+          f"m from its single-device references ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "frames.pkl"
+        with open(path, "wb") as fh:
+            pickle.dump({"bench": frames, "full": distorted}, fh)
+        t0 = time.perf_counter()
+        gloo = launch(_mesh_rank, MESH_GLOO_WORLD, backend="gloo", device="cuda:0",
+                      timeout_s=MESH_TIMEOUT_S, args=(str(path), n, card))
+        t_gloo = time.perf_counter() - t0
+        world = min(torch.cuda.device_count(), 4)
+        t0 = time.perf_counter()
+        nccl = launch(_mesh_rank, world, backend="nccl", timeout_s=MESH_TIMEOUT_S,
+                      args=(str(path), n, card))
+        t_nccl = time.perf_counter() - t0
+    print(f"[mesh] gloo: {MESH_GLOO_WORLD} ranks on {[r['device'] for r in gloo]} "
+          f"({t_gloo:.1f} s with start-up); nccl: {world} rank(s) on "
+          f"{[r['device'] for r in nccl]} ({t_nccl:.1f} s); {n} bench sweeps a mode "
+          f"({card}; gloo collectives are host-staged on one card, not NCCL over NVLink)",
+          flush=True)
+
+    g0 = gloo[0]
+    m = g0["map_ops"]
+    _require(all(r["map_ops"] == m for r in gloo) and m["insert"] and m["knn"] and m["roll"]
+             and m["migrated"] > 0,
+             f"[mesh] map operations at world 2 differ from the single-device map: {m}")
+    print(f"[mesh] map at world 2 on the card: {m['points']} points; insert, k-NN (Q=4096 "
+          f"k=5) and a roll migrating {m['migrated']} points equal the single-device "
+          "map's", flush=True)
+    rows = {}
+    for group, ranks in (("gloo", gloo), ("nccl", nccl)):
+        for name, _ in (MESH_MODES if group == "gloo" else MESH_MODES[2:]):
+            tag = f"mesh {group} {name}"
+            got = ranks[0][name]
+            _require(got["failed"] == 0, f"[{tag}] {got['failed']} failed frames")
+            _mesh_ranks_equal(tag, ranks, name)
+            # shard_maps against the single-device run of its own algorithm
+            base, what = (no_reuse, "the single-device run without reuse_knn") \
+                if name == "maps" else (single[:n], "phase 4's single-device run")
+            w1 = _mesh_check_poses(tag, got["poses"], base, what)
+            w2 = _mesh_check_poses(tag, got["poses"], ref[f"bench_{name}_poses"][:n],
+                                   MESH_REF_PATH.name)
+            ex = got["executions"]
+            _require(got["launches"] > 0 and all(v == got["launches"] for v in ex.values()),
+                     f"[{tag}] k-NN wrapper calls {got['launches']}, executions {ex}")
+            rows[f"{group} {name}"] = got["ms_frame"]
+            print(f"[{tag}] {got['ms_frame']:.2f} ms/frame (single device, phase 4: "
+                  f"{sync['ms_frame']:.2f}); {w1[0]:.3e} m / {w1[1]:.3e} deg from {what}, "
+                  f"{w2[0]:.3e} m / {w2[1]:.3e} deg from JAX's mesh; {got['launches']} k-NN "
+                  f"calls = executions {ex} ({card})", flush=True)
+    st = g0["stream"]
+    _require(st["failed"] == 0, "[mesh stream] failed frames")
+    _mesh_ranks_equal("mesh stream", gloo, "stream")
+    ws = _mesh_check_poses("mesh stream", st["poses"], g0["kp"]["poses"], "the mesh's sync path")
+    rows["gloo stream"] = st["ms_frame"]
+    print(f"[mesh stream] eager windows of {WINDOW}: {st['ms_frame']:.2f} ms/frame over "
+          f"frames {TIMED.start}-{TIMED.stop - 1}; {ws[0]:.3e} m from the mesh's sync path "
+          f"({card})", flush=True)
+    fu = g0["full"]
+    _require(fu["failed"] == 0, "[mesh full] failed frames")
+    _mesh_ranks_equal("mesh full", gloo, "full")
+    wf1 = _mesh_check_poses("mesh full", fu["poses"], full_no_reuse,
+                            "phase 6's configuration without reuse_knn")
+    wf2 = _mesh_check_poses("mesh full", fu["poses"], ref["full_maps_poses"], MESH_REF_PATH.name)
+    d_ov = float(np.abs(np.array(fu["overlap"][1:]) - ref["full_maps_overlap"][1:]).max())
+    _require(d_ov <= OVERLAP_TOL, f"[mesh full] overlap {d_ov} from JAX's mesh")
+    rows["gloo full shard_maps"] = fu["ms_frame"]
+    print(f"[mesh full] shard_maps sync: {fu['ms_frame']:.2f} ms/frame (phase 6 single "
+          f"device: {full['sync_ms']:.2f}); {wf1[0]:.3e} m from phase 6's configuration "
+          f"without reuse_knn, {wf2[0]:.3e} m from "
+          f"JAX's mesh; overlap within {d_ov:.2e} ({card})", flush=True)
+    rg = g0["rig"]
+    _require(rg["failed"] == 0, "[mesh rig] failed acquisitions")
+    _mesh_ranks_equal("mesh rig", gloo, "rig")
+    rows["gloo rig shard_maps"] = rg["ms_frame"]
+    print(f"[mesh rig] {MESH_RIG_ACQ} acquisitions of add_frames with shard_maps, 0 failed, "
+          f"{rg['ms_frame']:.2f} ms/acquisition ({card})", flush=True)
+    _require(g0["pgo_rel"] <= MESH_PGO_REL,
+             f"[mesh pgo] sharded Schur {g0['pgo_rel']:.2e} relative from the unsharded one")
+    print(f"[mesh pgo] {PGO_POSES}-pose Schur over {PGO_SEGMENTS} segments sharded over "
+          f"{MESH_GLOO_WORLD} gloo ranks: {g0['pgo_ms']:.1f} ms against unsharded "
+          f"{g0['pgo_unsharded_ms']:.1f} ms, {g0['pgo_rel']:.2e} relative ({card})",
+          flush=True)
+    shapes = g0["shapes"] + nccl[0]["shapes"]
+    drives = {d for s in shapes for d in s["drives"]}
+    _require(len(drives) == len(MESH_MODES) + 2,
+             f"[mesh] k-NN call shapes recorded from {sorted(drives)} only")
+    print(f"[mesh] {len(shapes)} k-NN call shapes of {len(drives)} mesh drives, each exact "
+          "against plain_knn on rank 0's inputs", flush=True)
+    return {"shapes": shapes, "ms_frame": rows, "max_abs_err":
+            max(s["max_abs_err"] for s in shapes),
+            "launches": {f"mesh {k}": v for k, v in
+                         (("gloo kp", g0["kp"]["launches"]), ("gloo ext", g0["ext"]["launches"]),
+                          ("gloo maps", g0["maps"]["launches"]),
+                          ("nccl maps", nccl[0]["maps"]["launches"]))},
+            "pgo_ms": {"sharded": g0["pgo_ms"], "unsharded": g0["pgo_unsharded_ms"]}}
+
+
 def _ref_pose(row):
     """A Poses.csv row (time x y z rX rY rZ) as a (4,4) pose."""
     from lidarslam_tpu_torch.core import se3
@@ -2983,6 +3382,10 @@ def main() -> int:
     front = phase_frontends(card, distorted)    # the native ingest, as vlp16_cli_ref.npz
     print(f"[time] phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
     done(10)
+    t0 = time.perf_counter()
+    mesh = phase_mesh(card, frames, distorted, sync, full)
+    print(f"[time] phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+    done(11)
     pf = ext["per_frame"]
     # what sets the per-frame bound: the side holding most of it
     by_ops = sum(s["bound_ms"] * s["calls_per_frame"] for s in ext["shapes"]
@@ -2997,13 +3400,15 @@ def main() -> int:
         "replaces": "lidarslam_tpu/ops/pallas_knn.py:121",
         "launches": ext["sync_launches"],
         "max_abs_err": max(rec["max_abs_err"], full["max_abs_err"], ext["max_abs_err"],
-                           rig["max_abs_err"], front["max_abs_err"]),
+                           rig["max_abs_err"], front["max_abs_err"], mesh["max_abs_err"]),
         "ms": pf["ms"], "plain_ms": pf["plain_ms"], "bound_ms": pf["bound_ms"],
         "bound_by": bound_by, "library_ms": pf["library_ms"],
         "per": f"one streamed frame of ext_config ({len(EXT_CALLS)} calls)",
         "launch_ms": pf["launch_ms"], "device_ms": pf["device_ms"],
         "shapes": ext["shapes"], "full_shapes": full["shapes"],
         "rig_shapes": rig["shapes"], "outdoor_shapes": front["shapes"],
+        "mesh_shapes": mesh["shapes"], "mesh_ms_per_frame": mesh["ms_frame"],
+        "mesh_pgo_ms": mesh["pgo_ms"],
         "launches_by_path": {"bench sync": sync["launches"],
                              "bench stream (Python calls)": stream["calls"],
                              "full sync": full["sync_launches"],
@@ -3012,7 +3417,7 @@ def main() -> int:
                              "ext stream (Python calls)": ext["stream_calls"],
                              "rig sync": rig["sync_launches"],
                              "rig stream (Python calls)": rig["stream_calls"],
-                             **front["launches"]},
+                             **front["launches"], **mesh["launches"]},
         "full_sync_launches_by_shape": full["sync_by_shape"],
         "ext_sync_launches_by_shape": ext["sync_by_shape"],
         "bench_full_map": {"ms": rec["ms"], "plain_ms": rec["plain_ms"],

@@ -25,6 +25,13 @@ LU); an H100 has float64 linear algebra, so here the solve runs on the
 card, in float64, unless the caller names the CPU (ROADMAP Queue 3, D6).
 Every solve goes through `torch.linalg.solve_ex` without its error check,
 so no LM iteration reads the device but for its one convergence flag.
+
+On a mesh (`mesh`: a `parallel.sharded.Mesh`) the segment interiors shard
+over the ranks: each rank eliminates its contiguous range of segments in
+float64 on its own device, the segments' endpoint blocks are gathered, every
+rank solves the small separator system, back-substitutes its own segments,
+and one gather assembles the step. The JAX package drops its mesh off the
+CPU (a TPU has no float64 LU); the card has float64, so the mesh stays.
 """
 
 from __future__ import annotations
@@ -74,7 +81,7 @@ def solve_block_tridiag_scan(D, U, rhs):
     return x[..., 0] if squeeze else x
 
 
-def solve_block_tridiag_schur(D, U, rhs, n_segments: int):
+def solve_block_tridiag_schur(D, U, rhs, n_segments: int, mesh=None):
     """Segment-Schur solve: interior elimination of all segments at once,
     the loop on the (n_segments - 1)-separator reduced system, and the
     interiors' back-substitution at once.
@@ -82,7 +89,11 @@ def solve_block_tridiag_schur(D, U, rhs, n_segments: int):
     Exact (up to roundoff) for any symmetric positive-definite block
     tridiagonal system. The chain is padded with decoupled identity blocks
     so every segment interior has equal length m (padding unknowns solve to
-    zero and cannot affect the rest: their couplings are zero)."""
+    zero and cannot affect the rest: their couplings are zero).
+
+    With `mesh` every rank passes the same system and gets the same x;
+    each eliminates and back-substitutes only its own ceil(S/n) segments
+    (the last rank's range padded with decoupled identity segments)."""
     squeeze = rhs.dim() == 2
     if squeeze:
         rhs = rhs[..., None]
@@ -122,10 +133,14 @@ def solve_block_tridiag_schur(D, U, rhs, n_segments: int):
     BL[:, 0] = c_prev.transpose(-1, -2)
     BR = zeros(S, m, B, B)
     BR[:, m - 1] = a
-    sol = solve_block_tridiag_scan(D_int, U_int, torch.cat([rhs_int, BL, BR], -1))
-    y = sol[..., :r]                                  # A^-1 rhs
-    FL = sol[..., r:r + B]                            # A^-1 (e_0 (x) c_prev^T)
-    FR = sol[..., r + B:]                             # A^-1 (e_last (x) a)
+    big_rhs = torch.cat([rhs_int, BL, BR], -1)
+    if mesh is None:
+        sol = solve_block_tridiag_scan(D_int, U_int, big_rhs)
+        y = sol[..., :r]                              # A^-1 rhs
+        FL = sol[..., r:r + B]                        # A^-1 (e_0 (x) c_prev^T)
+        FR = sol[..., r + B:]                         # A^-1 (e_last (x) a)
+    else:
+        y, FL, FR, mine = _sharded_interiors(D_int, U_int, big_rhs, r, B, mesh)
 
     aT = a.transpose(-1, -2)
     # reduced separator system (S-1 blocks, block tridiagonal)
@@ -138,12 +153,50 @@ def solve_block_tridiag_schur(D, U, rhs, n_segments: int):
     zpad = zeros(1, B, r)
     x_left = torch.cat([zpad, x_sep])                 # (S, B, r)
     x_right = torch.cat([x_sep, zpad])
-    x_int = y - FL @ x_left[:, None] - FR @ x_right[:, None]
+    if mesh is None:
+        x_int = y - FL @ x_left[:, None] - FR @ x_right[:, None]
+    else:   # this rank's segments (padding past S), then every rank's
+        yl, FLl, FRl = mine
+        per = yl.shape[0]
+        lo = mesh.rank * per
+        spare = zeros(per * mesh.size - S, B, r)
+        xl = torch.cat([x_left, spare])[lo:lo + per]
+        xr = torch.cat([x_right, spare])[lo:lo + per]
+        x_int = mesh.all_gather(yl - FLl @ xl[:, None] - FRl @ xr[:, None], tiled=True)[:S]
 
     # stitch back into chain order and drop padding
     x_full = torch.cat([x_int, torch.cat([x_sep, zpad])[:, None]],
                        dim=1).reshape(S * (m + 1), B, r)[:N]
     return x_full[..., 0] if squeeze else x_full
+
+
+def _sharded_interiors(D_int, U_int, big_rhs, r: int, B: int, mesh):
+    """The interiors' elimination on a mesh: this rank solves its
+    contiguous ceil(S/n) segments (padded with identity segments past S),
+    and the blocks the separator system reads (each segment's first and
+    last rows of y, FL, FR) are gathered from every rank in one collective.
+    Returns full-S (y, FL, FR) holding only those endpoint rows, and this
+    rank's own (y, FL, FR) for its back-substitution."""
+    S, m = D_int.shape[0], D_int.shape[1]
+    per = -(-S // mesh.size)
+    lo = mesh.rank * per
+    own = slice(lo, min(lo + per, S))
+    n_pad = per - (own.stop - own.start)
+    D_l, U_l, rhs_l = D_int[own], U_int[own], big_rhs[own]
+    if n_pad:
+        eye = torch.eye(B, dtype=D_int.dtype, device=D_int.device)
+        D_l = torch.cat([D_l, eye.expand(n_pad, m, B, B)])
+        U_l = torch.cat([U_l, U_l.new_zeros((n_pad,) + U_l.shape[1:])])
+        rhs_l = torch.cat([rhs_l, rhs_l.new_zeros((n_pad,) + rhs_l.shape[1:])])
+    sol = solve_block_tridiag_scan(D_l, U_l, rhs_l)              # (per, m, B, r+2B)
+    ends = mesh.all_gather(torch.stack([sol[:, 0], sol[:, m - 1]], dim=1),
+                           tiled=True)[:S]                        # (S, 2, B, r+2B)
+    full = torch.zeros((S, m) + sol.shape[2:], dtype=sol.dtype, device=sol.device)
+    full[:, 0] = ends[:, 0]
+    full[:, m - 1] = ends[:, 1]
+    y, FL, FR = full[..., :r], full[..., r:r + B], full[..., r + B:]
+    mine = (sol[..., :r], sol[..., r:r + B], sol[..., r + B:])
+    return y, FL, FR, mine
 
 
 # -----------------------------------------------------------------------------
@@ -189,7 +242,7 @@ def _assemble(X, Z, W_rel, gps_pos, gps_W, gps_vertex, offset, anchor,
 
 def _pgo_iterations(X, Z, W_rel, gps_pos, gps_W, gps_vertex, offset, anchor,
                     n_iterations: int, lam: float, ftol: float, gauge_weight: float,
-                    has_gps: bool, n_segments: int):
+                    has_gps: bool, n_segments: int, mesh=None):
     """The JAX package's LM while-loop as a host loop: each iteration
     assembles, tests convergence, damps, solves, steps X by exp(delta) and
     keeps X once converged, then reads the flag (one device read per
@@ -204,7 +257,7 @@ def _pgo_iterations(X, Z, W_rel, gps_pos, gps_W, gps_vertex, offset, anchor,
         diag = torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1), min=1e-9)
         Dd = D + lam * torch.diag_embed(diag)
         if n_segments > 1:
-            delta = solve_block_tridiag_schur(Dd, U, -b, n_segments)
+            delta = solve_block_tridiag_schur(Dd, U, -b, n_segments, mesh=mesh)
         else:
             delta = solve_block_tridiag_scan(Dd, U, -b)
         X = torch.where(done, X, X @ se3.jse3_exp(delta))
@@ -227,13 +280,22 @@ def optimize_pose_graph_device(
     n_segments: int = 0,
     verbose: bool = False,
     device=None,
+    mesh=None,
 ):
     """Drop-in device-backed replacement for posegraph.optimize_pose_graph.
 
     n_segments > 1 selects the segment-Schur solve; 0/1 the sequential
     block-LDL loop. Runs in float64 on `device`: "cuda" unless given (it
     raises where torch finds no CUDA device), "cpu" for the plain host
-    run. Returns (optimized_poses list[(4,4)], final_cost)."""
+    run; on a `mesh` its device unless given. With `mesh` every rank calls
+    it with the same graph: the Schur's segment interiors shard over the
+    ranks (4 segments a rank when `n_segments` < 2, as in the JAX package)
+    and every rank returns the same poses. Returns (optimized_poses
+    list[(4,4)], final_cost)."""
+    if mesh is not None and n_segments < 2:
+        n_segments = 4 * mesh.size
+    if device is None and mesh is not None:
+        device = mesh.device
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("optimize_pose_graph_device runs on a CUDA device unless asked "
@@ -273,7 +335,7 @@ def optimize_pose_graph_device(
         up(gps_vertex, torch.int64), up(offset), up(X[0]),
         n_iterations=config.n_iterations, lam=float(config.init_lambda),
         ftol=float(config.function_tolerance), gauge_weight=float(config.gauge_weight),
-        has_gps=has_gps, n_segments=max(int(n_segments), 0))
+        has_gps=has_gps, n_segments=max(int(n_segments), 0), mesh=mesh)
     Xh = Xt.cpu().numpy()
     cost = float(cost)
     if verbose:

@@ -20,13 +20,15 @@ from lidarslam_tpu_torch.ops.voxel_map import SubmapView, brute_knn
 
 
 def lcp_overlap(sample_xyz, sample_valid, indices: Sequence[SubmapView],
-                leaf_sizes: Sequence[float], prepared=None) -> torch.Tensor:
+                leaf_sizes: Sequence[float], prepared=None, mesh=None) -> torch.Tensor:
     """Mean best per-map Gaussian probability of having a close map
     neighbour: a () tensor in [0, 1].
 
     `sample_xyz` (S, 3) are the sampled registered points in the map frame;
     `indices`/`leaf_sizes` one entry per map; `prepared` optional per-map
-    `cuda_knn.KnnIndex` (the matcher's submap cache) to reuse."""
+    `cuda_knn.KnnIndex` (the matcher's submap cache) to reuse; `mesh`:
+    `indices` are this rank's slabs of slab-sharded maps, and each sample's
+    nearest distance is the minimum over the ranks."""
     best = torch.zeros(sample_xyz.shape[0], dtype=torch.float32, device=sample_xyz.device)
     for i, (index, leaf) in enumerate(zip(indices, leaf_sizes)):
         # beyond 6 sigma = 2*leaf the Gaussian is below exp(-18) ~ 1e-8, so
@@ -36,6 +38,8 @@ def lcp_overlap(sample_xyz, sample_valid, indices: Sequence[SubmapView],
                              q_valid=sample_valid,
                              prepared=None if prepared is None else prepared[i])
         d2 = d2[:, 0]
+        if mesh is not None:
+            d2 = mesh.pmin(d2)
         sigma2 = (leaf / 3.0) ** 2
         proba = torch.where(torch.isfinite(d2), torch.exp(-d2 / (2.0 * sigma2)), 0.0)
         best = torch.maximum(best, proba)

@@ -77,7 +77,8 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
                  undistort_mode: UndistortionMode = UndistortionMode.NONE,
                  prev_pose=None, t_prev=None, t_cur=None, time_range=None,
                  max_extrapolation_ratio: float = 3.0, extras=(),
-                 gated: bool = False, prune_radii=(None, None, None)) -> ICPResult:
+                 gated: bool = False, prune_radii=(None, None, None), mesh=None,
+                 map_shard: bool = False) -> ICPResult:
     """Run the ICP-LM loop from `pose0`. `prepared`: per-type
     `cuda_knn.KnnIndex` (built here when missing on CUDA). `gated`: run
     every round with no host read (see module docstring). Undistortion
@@ -85,7 +86,14 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
     `time_range` (time0, time1), all () float32 tensors. `prune_radii`: per
     type, the radius beyond which the kernel may skip map sub-blocks (None:
     the exact scan; `matcher.knn_radius`). `extras`: sensor residual blocks
-    (sensors/constraints.py) that every LM evaluation adds."""
+    (sensors/constraints.py) that every LM evaluation adds.
+
+    With `mesh` the keypoint arrays are this rank's slices: the match
+    counts and the normal equations are summed over the ranks, so every
+    rank steps the same pose. `map_shard`: the indices are this rank's
+    slabs of slab-sharded maps; each k-NN then gathers the queries and
+    merges the slabs' candidates (`matcher._knn`), and `reuse_knn` is off,
+    as in the JAX package."""
     pose = pose0.to(torch.float32)
     dev = pose.device
     active = torch.ones((), dtype=torch.bool, device=dev)
@@ -114,7 +122,8 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
     k_of = {Keypoint.EDGE: params.edge_nb_neighbors,
             Keypoint.PLANE: params.plane_nb_neighbors,
             Keypoint.BLOB: params.blob_nb_neighbors}
-    reuse = params.reuse_knn and icp_iters > 1
+    reuse = params.reuse_knn and icp_iters > 1 and not map_shard
+    map_mesh = mesh if map_shard else None
     knn_cache = None
 
     for it in range(icp_iters):
@@ -136,22 +145,25 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
                 need_rings = t == Keypoint.EDGE and params.single_edge_per_ring
                 _, nbr, rings, found = matcher.knn_query(
                     inputs.index[ti], world, k_of[t], prune_radii[ti],
-                    inputs.kp_valid[ti], prepared[ti], need_rings=need_rings)
+                    inputs.kp_valid[ti], prepared[ti], need_rings=need_rings,
+                    map_mesh=map_mesh)
                 knn_cache.append((nbr, rings, found))
 
         blocks = [_MATCH_FNS[t](xs[int(t)], inputs.kp_valid[int(t)],
                                 inputs.index[int(t)], pose, params,
                                 prepared=prepared[int(t)],
                                 knn=knn_cache[i] if reuse else None,
-                                prune_radius=prune_radii[int(t)])
+                                prune_radius=prune_radii[int(t)], map_mesh=map_mesh)
                   for i, t in enumerate(types)]
 
         it_counts = torch.stack([b.n_matches.to(torch.int32) for b in blocks])
+        if mesh is not None:
+            it_counts = mesh.psum(it_counts)
         it_total = torch.sum(it_counts, dtype=torch.int32)
         enough = it_total >= min_matches
 
         res = solver.robust_lm(blocks, pose, sat, solver_cfg, lm_max_iter,
-                               extras=extras)
+                               extras=extras, mesh=mesh)
 
         step_ok = active & enough
         pose = torch.where(step_ok, res.pose, pose)

@@ -74,7 +74,7 @@ def _finish(A6, P, X, weight, ok, status):
 
 
 def _knn(index: SubmapView, world, k, prune_radius, q_valid=None, prepared=None,
-         need_rings=False):
+         need_rings=False, map_mesh=None):
     """Neighbour search. Returns (d2 (Q,k), nbr (Q,k,3), rings (Q,k) or
     None, found (Q,k)). `rings` are the ring ids of the returned slots
     (`need_rings`, the ego-motion edge filter); a missing neighbour comes
@@ -82,7 +82,22 @@ def _knn(index: SubmapView, world, k, prune_radius, q_valid=None, prepared=None,
     `prune_radius` skips, on the kernel path, map sub-blocks beyond it (the
     plain scan ignores it): every neighbour within it comes back as in the
     exact scan, but which slots beyond it come back may differ (`knn_radius`
-    says which searches may prune)."""
+    says which searches may prune).
+
+    `map_mesh`: `index` is this rank's slab of a slab-sharded map and
+    `world` this rank's queries. The queries of all ranks are gathered,
+    each rank scans its slab for all of them (unpruned,
+    `sharded_map.shard_knn`), the global top-k is merged, and this rank
+    keeps its own rows: the JAX package's ("map_shard", axis) geometry."""
+    if map_mesh is not None:
+        from lidarslam_tpu_torch.parallel import sharded_map
+
+        q = world.shape[0]
+        d2f, nbrf, ringf = sharded_map.shard_knn(
+            index, map_mesh.all_gather(world, tiled=True), k, map_mesh, prepared=prepared)
+        own = slice(map_mesh.rank * q, (map_mesh.rank + 1) * q)
+        d2 = d2f[own]
+        return d2, nbrf[own], ringf[own] if need_rings else None, torch.isfinite(d2)
     d2, idx, nbr = brute_knn(index, world, k, prune_radius=prune_radius,
                              q_valid=q_valid, prepared=prepared)
     rings = index.ring[idx.long()] if need_rings else None
@@ -120,14 +135,15 @@ def _reuse_d2(world, nbr, found):
 
 
 def match_planes(kp_xyz, kp_valid, index: SubmapView, pose, params: MatchingConfig,
-                 prepared=None, knn=None, prune_radius=None):
+                 prepared=None, knn=None, prune_radius=None, map_mesh=None):
     """Point-to-plane matches (BuildPlaneMatch semantics). `knn`: cached
     (nbr, rings, found) from a previous round (reuse_knn mode);
     `prune_radius`: the kernel's (None: the exact scan; `knn_radius`)."""
     k = params.plane_nb_neighbors
     world = se3.japply_pose(pose, kp_xyz)
     if knn is None:
-        d2, nbr, _, found = _knn(index, world, k, prune_radius, kp_valid, prepared)
+        d2, nbr, _, found = _knn(index, world, k, prune_radius, kp_valid, prepared,
+                                 map_mesh=map_mesh)
     else:
         nbr, _, found = knn
         d2 = _reuse_d2(world, nbr, found)
@@ -159,7 +175,7 @@ def match_planes(kp_xyz, kp_valid, index: SubmapView, pose, params: MatchingConf
 
 
 def match_edges(kp_xyz, kp_valid, index: SubmapView, pose, params: MatchingConfig,
-                prepared=None, knn=None, prune_radius=None):
+                prepared=None, knn=None, prune_radius=None, map_mesh=None):
     """Point-to-line matches; the neighbour filter per
     `params.single_edge_per_ring` (ego-motion: one neighbour per ring;
     localization: RANSAC). `knn`: cached (nbr, rings, found) from a previous
@@ -169,7 +185,7 @@ def match_edges(kp_xyz, kp_valid, index: SubmapView, pose, params: MatchingConfi
     world = se3.japply_pose(pose, kp_xyz)
     if knn is None:
         d2, nbr, rings, found = _knn(index, world, k, prune_radius, kp_valid, prepared,
-                                     need_rings=per_ring)
+                                     need_rings=per_ring, map_mesh=map_mesh)
     else:
         nbr, rings, found = knn
         d2 = _reuse_d2(world, nbr, found)
@@ -203,14 +219,15 @@ def match_edges(kp_xyz, kp_valid, index: SubmapView, pose, params: MatchingConfi
 
 
 def match_blobs(kp_xyz, kp_valid, index: SubmapView, pose, params: MatchingConfig,
-                prepared=None, knn=None, prune_radius=None):
+                prepared=None, knn=None, prune_radius=None, map_mesh=None):
     """Point-to-ellipsoid matches (BuildBlobMatch semantics); `knn` and
     `prune_radius` as in `match_planes` (blobs prune at the gate too: their
     `near` reads every found neighbour)."""
     k = params.blob_nb_neighbors
     world = se3.japply_pose(pose, kp_xyz)
     if knn is None:
-        d2, nbr, _, found = _knn(index, world, k, prune_radius, kp_valid, prepared)
+        d2, nbr, _, found = _knn(index, world, k, prune_radius, kp_valid, prepared,
+                                 map_mesh=map_mesh)
     else:
         nbr, _, found = knn
         d2 = _reuse_d2(world, nbr, found)

@@ -30,11 +30,25 @@ view, so a decaying type rebuilds its submap every frame and keeps no
 `SubmapCache`) and the sensor residual blocks (`FrameInputs.extras`, added
 to the localization LM). A multi-LiDAR acquisition enters as merged
 keypoints (`process_keypoints`, `process_keypoints_stream`), with no range
-image and so no overlap. The multi-chip branches are not ported.
+image and so no overlap.
+
+On a mesh (`mesh`: a `parallel.sharded.Mesh`; every rank calls the step
+with the same sweep) the ICPs match this rank's contiguous 1/n of each
+keypoint type and sum their counts and normal equations over the ranks,
+and the per-keypoint statuses and weights are gathered back, so every
+output is replicated. The submap is rebuilt every frame (no
+`SubmapCache`), as in the JAX package. `shard_extraction` splits the
+extractor over rings (`extract_sharded`); `shard_maps` keeps in `maps`
+this rank's slabs of slab-sharded maps (`parallel/sharded_map.py`): the
+matcher's k-NN merges every slab's candidates, the overlap takes the
+minimum over the slabs, the keyframe gate sums the map sizes, and the
+update rolls with ring migration and inserts into the rank's slab, with
+`overflow` the global total.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -46,7 +60,8 @@ from lidarslam_tpu_torch.config import (EgoMotionMode, Keypoint, SlamConfig,
 from lidarslam_tpu_torch.core import se3
 from lidarslam_tpu_torch.ops import extractor, icp, matcher, solver, undistortion, voxel_map
 from lidarslam_tpu_torch.ops.frame import (FlatRangeImage, Keypoints, ensure_range_image,
-                                           flatten_keypoints)
+                                           flatten_keypoints, merge_keypoints)
+from lidarslam_tpu_torch.parallel import sharded_map
 
 
 class SubmapCache(NamedTuple):
@@ -129,11 +144,14 @@ def unpack_scalars(packed):
     }
 
 
-def init_submap_cache(cfg: SlamConfig, map_cfgs, device):
+def init_submap_cache(cfg: SlamConfig, map_cfgs, device, sharded: bool = False):
     """Empty per-type SubmapCache tuple (stale: rebuilt on first use), with
     the structure the step produces (a KnnIndex of the empty selection on
-    CUDA). Types with per-frame decay get no cache."""
+    CUDA). Types with per-frame decay get no cache, nor does a mesh
+    (`sharded`), whose step rebuilds the submap every frame."""
     caches = [None, None, None]
+    if sharded:
+        return tuple(caches)
     for t in cfg.used_types:
         mc = map_cfgs[int(t)]
         if mc.decaying_threshold > 0:
@@ -147,14 +165,57 @@ def init_submap_cache(cfg: SlamConfig, map_cfgs, device):
 
 
 def process_frame(ri, maps: tuple, prev_keypoints: tuple, inp: FrameInputs,
-                  cfg: SlamConfig, map_cfgs: tuple, first_frame: bool) -> FrameResult:
+                  cfg: SlamConfig, map_cfgs: tuple, first_frame: bool, mesh=None,
+                  shard_maps: bool = False, shard_extraction: bool = False) -> FrameResult:
     """Full per-sweep step from a range image (or one of its wires);
     `prev_keypoints`: the previous sweep's Keypoints per type (ego-motion
-    registration's target)."""
+    registration's target). `mesh`, `shard_maps`, `shard_extraction`: see
+    the module docstring."""
     ri = ensure_range_image(ri)
-    ext = extractor.extract_keypoints(ri, inp.az_resolution, cfg.extractor)
-    return process_keypoints((ext.edges, ext.planes, ext.blobs), ri, maps, prev_keypoints,
-                             inp, cfg, map_cfgs, first_frame)
+    return process_keypoints(_extract(ri, inp.az_resolution, cfg, mesh, shard_extraction),
+                             ri, maps, prev_keypoints, inp, cfg, map_cfgs, first_frame,
+                             mesh=mesh, shard_maps=shard_maps)
+
+
+def _extract(ri, az_res, cfg: SlamConfig, mesh, shard_extraction: bool):
+    if shard_extraction and mesh is not None:
+        return extract_sharded(ri, az_res, cfg, mesh)
+    ext = extractor.extract_keypoints(ri, az_res, cfg.extractor)
+    return ext.edges, ext.planes, ext.blobs
+
+
+def extract_sharded(ri, az_res, cfg: SlamConfig, mesh):
+    """Ring-sharded keypoint extraction: every extraction stage is
+    per-ring independent, so each rank extracts its contiguous R/n-ring
+    slice of the (replicated) range image with a K/n keypoint budget, and
+    the per-type sets are gathered and compacted back to the full
+    capacity. Per-rank K/n budgets change which keypoints survive only at
+    capacity saturation (the even-spread compaction then runs per slice
+    instead of globally)."""
+    ecfg = cfg.extractor
+    n = mesh.size
+    R = ecfg.n_rings
+    caps = tuple(ecfg.kp_capacity(i) for i in range(3))
+    if R % n or any(K % n for K in caps):
+        raise ValueError(f"shard_extraction needs n_rings ({R}) and every keypoint "
+                         f"capacity ({caps}) divisible by the mesh size ({n})")
+    rows = R // n
+    start = mesh.rank * rows
+    ri_s = type(ri)(*(a[start:start + rows] for a in ri))
+    ecfg_s = dataclasses.replace(
+        ecfg, n_rings=rows, max_keypoints=ecfg.max_keypoints // n,
+        max_edge_keypoints=ecfg.max_edge_keypoints // n,
+        max_plane_keypoints=ecfg.max_plane_keypoints // n,
+        max_blob_keypoints=ecfg.max_blob_keypoints // n)
+    ext = extractor.extract_keypoints(ri_s, az_res, ecfg_s)
+    out = []
+    for K, kp in zip(caps, (ext.edges, ext.planes, ext.blobs)):
+        kp = kp._replace(ring=torch.where(kp.valid, kp.ring + start, kp.ring))
+        g = Keypoints(*(mesh.all_gather(a, tiled=True) for a in kp[:-1]), count=kp.count)
+        # compact valid-first so downstream capacity slices stay dense
+        # (merge_keypoints counts the valid slots itself)
+        out.append(merge_keypoints([g], K))
+    return tuple(out)
 
 
 def _bbox(world, valid):
@@ -166,19 +227,29 @@ def _bbox(world, valid):
 
 def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
                       inp: FrameInputs, cfg: SlamConfig, map_cfgs: tuple,
-                      first_frame: bool, sync_free: bool = False) -> FrameResult:
+                      first_frame: bool, sync_free: bool = False, mesh=None,
+                      shard_maps: bool = False) -> FrameResult:
     """Per-sweep step from already-extracted keypoints; `ri` (a RangeImage,
     or None) is sampled for the overlap. `sync_free`: the streaming form,
-    with no host read (see module docstring)."""
+    with no host read; `mesh`, `shard_maps`: the multi-device forms (see
+    module docstring)."""
     types = cfg.used_types
     dev = inp.prev_pose.device
+    if shard_maps and mesh is None:
+        raise ValueError("shard_maps requires a mesh")
+    if mesh is not None:
+        for t in types:
+            if kps[int(t)].xyz.shape[0] % mesh.size:
+                raise ValueError(f"extractor.max_keypoints ({kps[int(t)].xyz.shape[0]}) "
+                                 f"must be divisible by the mesh size ({mesh.size})")
+    map_mesh = mesh if shard_maps else None
 
     # ---------------- ego-motion registration (optional) ----------------
     trel = inp.trel_prior
     if cfg.ego_motion_mode in (EgoMotionMode.REGISTRATION,
                                EgoMotionMode.MOTION_EXTRAPOLATION_AND_REGISTRATION) \
             and prev_keypoints is not None and not first_frame:
-        trel = _ego_registration(kps, prev_keypoints, trel, cfg, sync_free)
+        trel = _ego_registration(kps, prev_keypoints, trel, cfg, sync_free, mesh)
 
     loc_prior = se3.jcompose_pose(inp.prev_pose, trel)
     new_cache = list(inp.submap_cache)
@@ -212,7 +283,8 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
                 world = se3.japply_pose(loc_prior, kp.xyz)
                 bbox_min, bbox_max = _bbox(world, kp.valid)
                 view = voxel_map.extract_submap_view(
-                    m, bbox_min, bbox_max, torch.div(kp.count, 2, rounding_mode="floor"), mc)
+                    m, bbox_min, bbox_max, torch.div(kp.count, 2, rounding_mode="floor"), mc,
+                    mesh=map_mesh)
                 if cache is not None:
                     fresh = SubmapCache(selected=view.valid,
                                         index=voxel_map.prepare_knn_index(view))
@@ -236,17 +308,19 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
                 t_cur=voxel_map.device_f32(inp.stamp, dev),
                 time_range=_time_range(kps, types, dev),
                 max_extrapolation_ratio=cfg.max_extrapolation_ratio)
+        sl = (lambda a: a) if mesh is None else mesh.shard_slice
         res = icp.icp_register(
-            icp.ICPInputs(kp_xyz=tuple(k.xyz for k in kps),
-                          kp_valid=tuple(k.valid for k in kps), index=tuple(index),
-                          kp_time=tuple(k.time for k in kps)),
+            icp.ICPInputs(kp_xyz=tuple(sl(k.xyz) for k in kps),
+                          kp_valid=tuple(sl(k.valid) for k in kps), index=tuple(index),
+                          kp_time=tuple(sl(k.time) for k in kps)),
             types=types, pose0=loc_prior, params=cfg.loc_matching,
             solver_cfg=cfg.solver, icp_iters=cfg.localization_icp_max_iter,
             lm_max_iter=cfg.localization_lm_max_iter,
             min_matches=cfg.min_nb_matched_keypoints, prepared=tuple(prepared),
             extras=inp.extras, gated=sync_free,
-            prune_radii=tuple(matcher.knn_radius(t, cfg.loc_matching) for t in Keypoint),
-            **undist_kwargs)
+            prune_radii=(None,) * 3 if shard_maps
+            else tuple(matcher.knn_radius(t, cfg.loc_matching) for t in Keypoint),
+            mesh=mesh, map_shard=shard_maps, **undist_kwargs)
 
         failed = res.failed
         pose = torch.where(failed, inp.prev_pose, res.pose)  # rollback (Slam.cxx:1098-1107)
@@ -255,10 +329,14 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
         cov = torch.where(failed, 0.0, solver.pose_covariance(res.H))
         statuses = res.statuses
         wts = res.weights
+        if mesh is not None:
+            # the per-keypoint debug surface, reassembled on every rank
+            statuses = tuple(mesh.all_gather(x, tiled=True) for x in statuses)
+            wts = tuple(mesh.all_gather(x, tiled=True) for x in wts)
         warp = res.warp
         trel = torch.where(failed, 0.0, _relative_pose(inp.prev_pose, pose))
         if cfg.confidence.overlap_sampling_ratio > 0 and ri is not None:
-            overlap = _overlap(ri, pose, index, cfg, map_cfgs, warp, prepared)
+            overlap = _overlap(ri, pose, index, cfg, map_cfgs, warp, prepared, map_mesh)
 
     # ---------------- keyframe gate ----------------
     kf_motion = _relative_pose(inp.kf_last_pose, pose)
@@ -272,6 +350,8 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
     dist_thr = coef * cfg.kf_distance_threshold
     ang_thr = torch.deg2rad(coef * cfg.kf_angle_threshold)
     n_map_pts = sum(maps[int(t)].n_points for t in types)
+    if shard_maps:
+        n_map_pts = mesh.psum(n_map_pts)
     is_kf = ((n_map_pts < cfg.min_nb_matched_keypoints * 10)
              | (trans >= dist_thr) | (rot >= ang_thr))
     do_update = is_kf & ~failed & inp.map_update
@@ -296,6 +376,15 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
         kp = kps[ti]
         shifted = world_kp[ti] - offset.to(torch.float32) * voxel_map.effective_resolution(
             shared_cfg)
+        if shard_maps:
+            # overflow stays the global total: this frame's per-slab drops
+            # of the roll and the insert are summed over the ranks
+            m = maps[ti]
+            m = m._replace(overflow=torch.zeros_like(m.overflow))
+            m = sharded_map.shard_roll(m, offset, map_cfgs[ti], mesh)
+            m = sharded_map.shard_add_points(m, shifted, kp.intensity, kp.time, kp.valid,
+                                             inp.stamp, map_cfgs[ti], False, mesh)
+            return m._replace(overflow=maps[ti].overflow + mesh.psum(m.overflow))
         m = voxel_map.roll_by_offset(maps[ti], offset, map_cfgs[ti])
         return voxel_map.add_points(m, shifted, kp.intensity, kp.time, kp.valid,
                                     inp.stamp, map_cfgs[ti], fixed=False)
@@ -336,25 +425,29 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
         cache_stale=cache_stale)
 
 
-def _ego_registration(kps, prev_keypoints, trel_prior, cfg: SlamConfig, gated: bool):
+def _ego_registration(kps, prev_keypoints, trel_prior, cfg: SlamConfig, gated: bool,
+                      mesh=None):
     """Scan-to-scan ICP of this sweep's edges and planes against the
     previous sweep's (JAX pipeline.py:277-306): the refined ego-motion, or
     the prior where it fails (an empty previous set fails it). The index is
     the previous keypoints in extraction order, searched by the exact scan
     (no prune radius): at most 4096 slots, and the per-ring filter's `near`
-    gate, like the RANSAC one, reads only the selected neighbours."""
+    gate, like the RANSAC one, reads only the selected neighbours. With
+    `mesh` each rank matches its slice of this sweep's keypoints against
+    all of the previous sweep's (replicated)."""
     ego_types = tuple(t for t in (Keypoint.EDGE, Keypoint.PLANE) if cfg.use_keypoints(t))
     index = [None, None, None]
     for t in ego_types:
         pk = prev_keypoints[int(t)]
         index[int(t)] = voxel_map.SubmapView(xyz=pk.xyz, ring=pk.ring, valid=pk.valid)
+    sl = (lambda a: a) if mesh is None else mesh.shard_slice
     ego = icp.icp_register(
-        icp.ICPInputs(kp_xyz=tuple(k.xyz for k in kps), kp_valid=tuple(k.valid for k in kps),
-                      index=tuple(index)),
+        icp.ICPInputs(kp_xyz=tuple(sl(k.xyz) for k in kps),
+                      kp_valid=tuple(sl(k.valid) for k in kps), index=tuple(index)),
         types=ego_types, pose0=trel_prior, params=cfg.ego_matching,
         solver_cfg=cfg.solver, icp_iters=cfg.ego_motion_icp_max_iter,
         lm_max_iter=cfg.ego_motion_lm_max_iter,
-        min_matches=cfg.min_nb_matched_keypoints, gated=gated)
+        min_matches=cfg.min_nb_matched_keypoints, gated=gated, mesh=mesh)
     return torch.where(ego.failed, trel_prior, ego.pose)
 
 
@@ -370,10 +463,10 @@ def _time_range(kps, types, device):
     return tmin, tmax
 
 
-def _overlap(ri, pose, indices, cfg: SlamConfig, map_cfgs, warp, prepared):
+def _overlap(ri, pose, indices, cfg: SlamConfig, map_cfgs, warp, prepared, map_mesh=None):
     """LCP overlap of a strided sample of the registered sweep against the
     localization submaps (JAX pipeline.py:712-734), reusing their k-NN
-    indices."""
+    indices; `map_mesh`: the submaps are this rank's slabs."""
     flat = ri.xyz.reshape(-1, 3)
     n = flat.shape[0]
     take = min(cfg.confidence.overlap_max_samples,
@@ -387,7 +480,8 @@ def _overlap(ri, pose, indices, cfg: SlamConfig, map_cfgs, warp, prepared):
     types = cfg.used_types
     return confidence.lcp_overlap(world, svalid, [indices[int(t)] for t in types],
                                   [map_cfgs[int(t)].leaf_size for t in types],
-                                  prepared=[prepared[int(t)] for t in types])
+                                  prepared=[prepared[int(t)] for t in types],
+                                  mesh=map_mesh)
 
 
 def _select(cond, a, b):
@@ -439,31 +533,35 @@ class StreamState(NamedTuple):
 
 
 def process_frame_stream(ri, state: StreamState, stamp, az_res, cfg: SlamConfig,
-                         map_cfgs: tuple, first_frame: bool, extras=()):
+                         map_cfgs: tuple, first_frame: bool, extras=(), mesh=None,
+                         shard_maps: bool = False, shard_extraction: bool = False):
     """One chained streaming step: (state', packed (67,), kps_flat — one
     (7K+1,) log buffer per type, frame.flatten_keypoints).
 
     packed = pack_scalars (64) + origin_vox after this frame (3); its poses
     are relative to the origin before this frame's roll. `stamp` and
     `az_res` are () float32 device tensors; `extras` the sweep's sensor
-    residual blocks, as device tensors."""
+    residual blocks, as device tensors. On a mesh the state's maps are
+    replicated, or this rank's slabs with `shard_maps`; the step's
+    collectives are read by the host, so a mesh step runs eagerly."""
     ri = ensure_range_image(ri)
-    ext = extractor.extract_keypoints(ri, az_res, cfg.extractor)
-    return _stream_step((ext.edges, ext.planes, ext.blobs), ri, state, stamp, az_res, cfg,
-                        map_cfgs, first_frame, extras)
+    return _stream_step(_extract(ri, az_res, cfg, mesh, shard_extraction), ri, state, stamp,
+                        az_res, cfg, map_cfgs, first_frame, extras, mesh, shard_maps)
 
 
 def process_keypoints_stream(kps: tuple, state: StreamState, stamp, az_res, cfg: SlamConfig,
-                             map_cfgs: tuple, first_frame: bool, extras=()):
+                             map_cfgs: tuple, first_frame: bool, extras=(), mesh=None,
+                             shard_maps: bool = False):
     """The streaming step from pre-extracted keypoints (a multi-LiDAR
     acquisition's merged sets, `Slam.add_frames_async`): `_stream_step`
     with no range image, so no overlap. Returns what `process_frame_stream`
     returns."""
-    return _stream_step(kps, None, state, stamp, az_res, cfg, map_cfgs, first_frame, extras)
+    return _stream_step(kps, None, state, stamp, az_res, cfg, map_cfgs, first_frame, extras,
+                        mesh, shard_maps)
 
 
 def _stream_step(kps, ri, state: StreamState, stamp, az_res, cfg: SlamConfig, map_cfgs,
-                 first_frame: bool, extras=()):
+                 first_frame: bool, extras=(), mesh=None, shard_maps: bool = False):
     dev = state.pose.device
     # in-graph constant-velocity extrapolation (Slam.cxx:821-836)
     Rw, tw = undistortion.jinterpolate_pose(state.prev_pose, state.pose, stamp,
@@ -479,7 +577,7 @@ def _stream_step(kps, ri, state: StreamState, stamp, az_res, cfg: SlamConfig, ma
         map_update=state.map_update, submap_cache=state.submap_cache,
         cache_stale=state.cache_stale)
     res = process_keypoints(kps, ri, state.maps, state.prev_keypoints, inp, cfg, map_cfgs,
-                            first_frame, sync_free=True)
+                            first_frame, sync_free=True, mesh=mesh, shard_maps=shard_maps)
 
     res_m = voxel_map.effective_resolution(map_cfgs[int(cfg.used_types[0])])
     shift = torch.cat([res.roll_offset.to(torch.float32) * res_m,
@@ -513,7 +611,8 @@ def window_frame(ri_stack, w: int):
 
 
 def process_stream_window(ri_stack, state: StreamState, stamps, az_res,
-                          cfg: SlamConfig, map_cfgs: tuple):
+                          cfg: SlamConfig, map_cfgs: tuple, mesh=None, shard_maps: bool = False,
+                          shard_extraction: bool = False):
     """W chained streaming steps over a leading-axis-W stack of sweeps
     (`frame.stack_range_images`), the exact per-frame step each time — the
     JAX package's `lax.scan` as a loop. Returns (state', packed (W, 67),
@@ -521,18 +620,23 @@ def process_stream_window(ri_stack, state: StreamState, stamps, az_res,
     packed, kps_flat = [], []
     for w in range(stamps.shape[0]):
         state, p, k = process_frame_stream(window_frame(ri_stack, w), state, stamps[w],
-                                           az_res, cfg, map_cfgs, False)
+                                           az_res, cfg, map_cfgs, False, mesh=mesh,
+                                           shard_maps=shard_maps,
+                                           shard_extraction=shard_extraction)
         packed.append(p)
         kps_flat.append(k)
     return state, torch.stack(packed), tuple(torch.stack(k) for k in zip(*kps_flat))
 
 
-def init_stream_state(cfg: SlamConfig, map_cfgs, device) -> StreamState:
-    """A fresh segment's state: empty maps, zero poses, stale submaps."""
+def init_stream_state(cfg: SlamConfig, map_cfgs, device, mesh=None,
+                      shard_maps: bool = False) -> StreamState:
+    """A fresh segment's state: empty maps (this rank's slabs with
+    `shard_maps`), zero poses, stale submaps (none on a mesh)."""
     def z(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
+    n = mesh.size if shard_maps else 1
     return StreamState(
-        maps=tuple(voxel_map.VoxelMap.empty(map_cfgs[i], device)
+        maps=tuple(sharded_map.empty_slab(map_cfgs[i], n, device)
                    if cfg.use_keypoints(Keypoint(i)) else None for i in range(3)),
         prev_keypoints=tuple(Keypoints.empty(cfg.extractor.kp_capacity(i), device)
                              for i in range(3)),
@@ -540,19 +644,20 @@ def init_stream_state(cfg: SlamConfig, map_cfgs, device) -> StreamState:
         kf_counter=z((), torch.int32), origin_vox=z(3, torch.int32),
         n_frames=z((), torch.int32),
         map_update=torch.full((), cfg.mapping_mode != 0, dtype=torch.bool, device=device),
-        submap_cache=init_submap_cache(cfg, map_cfgs, device),
+        submap_cache=init_submap_cache(cfg, map_cfgs, device, sharded=mesh is not None),
         cache_stale=torch.ones((), dtype=torch.bool, device=device))
 
 
 def seed_stream_state(maps: tuple, pose, prev_pose, t_cur, t_prev, kf_pose,
                       kf_counter, origin_vox, n_frames, map_update,
-                      cfg: SlamConfig, map_cfgs: tuple, device) -> StreamState:
+                      cfg: SlamConfig, map_cfgs: tuple, device, mesh=None,
+                      shard_maps: bool = False) -> StreamState:
     """A segment's state from host state (numpy poses, Python scalars); the
     maps are copied, so the host's map tensors stay its own."""
     def t(a, dtype):
         return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
     f32 = torch.float32
-    st = init_stream_state(cfg, map_cfgs, device)
+    st = init_stream_state(cfg, map_cfgs, device, mesh, shard_maps)
     return st._replace(
         maps=tuple(None if m is None else voxel_map.VoxelMap(*(a.clone() for a in m))
                    for m in maps),

@@ -114,9 +114,12 @@ def _extra_terms(extras, R, t, dRs):
     return cost, H, g
 
 
-def _evaluate(b: _Block, pose, saturation, extras=()):
+def _evaluate(b: _Block, pose, saturation, extras=(), mesh=None):
     """Robust cost, normal equations H (6,6) and gradient g (6,) at `pose`,
-    sensor blocks included."""
+    sensor blocks included. With `mesh` the matches are this rank's share,
+    and their partial sums are summed over the ranks in one 43-float
+    `psum` of [cost, g, H] (the multi-device reduction point); the sensor
+    blocks, replicated, are added after it."""
     R, t = se3.jpose_to_rt(pose)
     dRs = rotation_derivatives(pose[3:6])                 # (3 params, 3, 3)
     d = b.X @ R.T + t - b.P                               # (Q, 3)
@@ -130,6 +133,9 @@ def _evaluate(b: _Block, pose, saturation, extras=()):
     H = torch.einsum("qki,qkj->ij", wJ, J)
     g = torch.einsum("qki,qk->i", wJ, e)
     cost = torch.sum(b.w * tukey_rho(s, saturation))
+    if mesh is not None:
+        flat = mesh.psum(torch.cat([cost[None], g, H.reshape(36)]))
+        cost, g, H = flat[0], flat[1:7], flat[7:].reshape(6, 6)
     if not extras:
         return cost, H, g
     ec, eH, eg = _extra_terms(extras, R, t, dRs)
@@ -144,13 +150,14 @@ class LMResult(NamedTuple):
 
 
 def robust_lm(blocks: Sequence[Matches], pose0, saturation, cfg: SolverConfig,
-              lm_max_iter: int, extras=()) -> LMResult:
+              lm_max_iter: int, extras=(), mesh=None) -> LMResult:
     """LM minimization of the robustified match cost, plus the sensor
-    blocks `extras`, starting at pose0."""
+    blocks `extras`, starting at pose0. `mesh`: the blocks are this rank's
+    share of the matches (see `_evaluate`); every rank steps the same pose."""
     b = _block(blocks[0]) if len(blocks) == 1 else _Block(
         *(torch.cat(parts) for parts in zip(*(_block(m) for m in blocks))))
     dev = pose0.device
-    cost, H, g = _evaluate(b, pose0, saturation, extras)
+    cost, H, g = _evaluate(b, pose0, saturation, extras, mesh)
     pose = pose0
     lam = torch.full((), cfg.initial_lm_lambda, dtype=pose0.dtype, device=dev)
     nsucc = torch.ones((), dtype=torch.int32, device=dev)
@@ -169,7 +176,7 @@ def robust_lm(blocks: Sequence[Matches], pose0, saturation, cfg: SolverConfig,
         if free is not None:
             delta = delta * free
         pose_new = pose + delta
-        cost_new, H_new, g_new = _evaluate(b, pose_new, saturation, extras)
+        cost_new, H_new, g_new = _evaluate(b, pose_new, saturation, extras, mesh)
         finite = torch.isfinite(cost_new) & torch.all(torch.isfinite(delta))
         accept = finite & (cost_new < cost) & ~done
         small = accept & (cost - cost_new

@@ -34,6 +34,8 @@ of a frame then launch as one graph instead of one Python call each.
   copied out of the graph's static outputs into the window's own tensors.
 
 Nothing falls back to eager execution: a capture or replay failure raises.
+A mesh step (`parallel/sharded.py`) is never captured: `StreamGraph`
+refuses a mesh, and `Slam` streams on a mesh eagerly.
 The k-NN kernels (csrc/knn.cu) launch on the current stream, which is the
 capturing stream during capture, so the graph contains them, with the
 workspace the wrapper allocates from the graph's pool;
@@ -352,7 +354,12 @@ class StreamGraph(_Replayed):
     docstring."""
 
     def __init__(self, cfg: SlamConfig, map_cfgs: tuple, device, wire,
-                 blocks=(False, False)):
+                 blocks=(False, False), mesh=None):
+        if mesh is not None:
+            # gloo collectives run on the host and NCCL ones are not yet
+            # captured (ROADMAP): a mesh streams eagerly, step by step
+            raise ValueError("StreamGraph does not capture a mesh step: its collectives "
+                             "are driven from the host; run the mesh stream eagerly")
         super().__init__(device)
         self.cfg = cfg
         self.blocks = tuple(blocks)   # per BLOCK_KINDS: the graph holds that block

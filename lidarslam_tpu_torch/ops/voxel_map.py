@@ -375,9 +375,11 @@ def brute_knn(view: SubmapView, queries, k: int,
 
 
 def extract_submap_view(vmap_: VoxelMap, bbox_min, bbox_max, min_nb_points,
-                        cfg: MapConfig) -> SubmapView:
+                        cfg: MapConfig, mesh=None) -> SubmapView:
     """Submap selection (bbox + moving-object filter with fallback,
-    BuildSubMapKdTree 362-442 semantics) as a masked view."""
+    BuildSubMapKdTree 362-442 semantics) as a masked view. With `mesh`
+    (`vmap_` is this rank's slab of a sharded map), the fallback counts the
+    clean points of every slab, so all ranks decide as one map would."""
     res = effective_resolution(cfg)
     half = half_extent(cfg)
     lo = torch.clamp(torch.floor((bbox_min + half) / res), min=0.0)
@@ -388,6 +390,8 @@ def extract_submap_view(vmap_: VoxelMap, bbox_min, bbox_max, min_nb_points,
         still = vmap_.count >= cfg.min_frames_per_voxel
         clean = in_bbox & (still | vmap_.fixed)
         n_clean = torch.sum(clean)
+        if mesh is not None:
+            n_clean = mesh.psum(n_clean)
         use_all = (min_nb_points < 0) | (n_clean < min_nb_points)
         selected = torch.where(use_all, in_bbox, clean)
     else:

@@ -54,11 +54,26 @@ ROADMAP Queue 3, D7);
 registers per-frame output callbacks (`outputs.FrameOutput`). After any of
 these replaces the maps, the next stream segment is seeded from them: on
 CUDA the state is copied into the captured graph's buffers.
+
+Several devices: `Slam(cfg, mesh=mesh)` with a `parallel.sharded.Mesh`
+(one process per rank, `parallel/launch.py` or `torchrun`). Every rank
+builds the same Slam and feeds it the same sweeps; the step matches each
+rank's 1/n of the keypoints and sums the normal equations over the ranks,
+so every rank holds the same poses, logs and (replicated) maps.
+`shard_extraction` splits extraction over rings; `shard_maps` keeps in
+`self.maps` this rank's slab of each map (`parallel/sharded_map.py`). Every
+path runs on a mesh: `add_frame(s)`, `add_frame(s)_async` + `flush`
+(eagerly: a mesh step's collectives are driven from the host, so no CUDA
+graph is captured; ROADMAP Queue 3, D9) and the PGO, whose segment-Schur
+solve shards over the ranks. Under `shard_maps` the methods that read the
+maps gather the slabs, so every rank must call them (collectives), and
+those that write files write them on rank 0 only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import time as _time
@@ -79,6 +94,7 @@ from lidarslam_tpu_torch.ops.frame import (Keypoints, KeypointsView, PackedRange
                                            flatten_packed, merge_keypoints,
                                            stack_range_images, to_device_range_image,
                                            transform_keypoints)
+from lidarslam_tpu_torch.parallel import sharded, sharded_map
 from lidarslam_tpu_torch.sensors.constraints import (ImuManager, WheelOdometryManager,
                                                      on_device)
 from lidarslam_tpu_torch.utils import timer
@@ -109,10 +125,24 @@ class Slam:
 
     `device` "cuda" (the default) runs the k-NN kernel and replays the
     streaming step as a CUDA graph; it raises where no CUDA device exists.
-    "cpu" runs the plain PyTorch versions."""
+    "cpu" runs the plain PyTorch versions. With a `mesh` (see the module
+    docstring) the Slam runs on the mesh's device; `shard_maps` and
+    `shard_extraction` need one."""
 
-    def __init__(self, config: Optional[SlamConfig] = None, *, device="cuda"):
+    def __init__(self, config: Optional[SlamConfig] = None, *, device=None, mesh=None,
+                 shard_maps: bool = False, shard_extraction: bool = False):
         self.cfg = config or SlamConfig()
+        if (shard_maps or shard_extraction) and mesh is None:
+            raise ValueError("shard_maps/shard_extraction require a mesh")
+        self.mesh = mesh
+        self.shard_maps = bool(shard_maps)
+        self.shard_extraction = bool(shard_extraction)
+        if mesh is not None and device is not None:
+            want = torch.device(device)
+            if want.type != mesh.device.type or want.index not in (None, mesh.device.index):
+                raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+        if device is None:
+            device = "cuda" if mesh is None else mesh.device
         if self.cfg.two_d_mode and not self.cfg.solver.two_d_mode:
             self.cfg = dataclasses.replace(
                 self.cfg, solver=dataclasses.replace(self.cfg.solver, two_d_mode=True))
@@ -132,6 +162,8 @@ class Slam:
             dataclasses.replace(cfg.map_config(Keypoint(i)), voxel_resolution=shared_res)
             for i in range(3))
         self.map_cfgs = {k: self._map_cfgs_tuple[int(k)] for k in cfg.used_types}
+        if mesh is not None:
+            self._check_mesh(mesh)
         self._graph = None       # stream_graph.StreamGraph of the sweeps (CUDA)
         self._rig_graph = None   # ... of a rig's merged keypoints, sharing its state
         self._extract_graphs = {}   # device_id -> stream_graph.ExtractGraph (CUDA)
@@ -143,6 +175,33 @@ class Slam:
         self._subscribers: list = []
         self._last_statuses = self._last_weights = None
         self.reset()
+
+    def _check_mesh(self, mesh):
+        """The JAX package's divisibility errors for a mesh of `mesh.size`."""
+        cfg, n = self.cfg, mesh.size
+        for t in cfg.used_types:
+            if cfg.extractor.kp_capacity(t) % n:
+                raise ValueError(f"{t.name} keypoint capacity ({cfg.extractor.kp_capacity(t)}) "
+                                 f"must be divisible by the mesh size ({n})")
+        if self.shard_maps:
+            for k in cfg.used_types:
+                if self.map_cfgs[k].capacity % n:
+                    raise ValueError(f"map capacity ({self.map_cfgs[k].capacity}) must be "
+                                     f"divisible by the mesh size ({n})")
+        if self.shard_extraction and cfg.extractor.n_rings % n:
+            raise ValueError(f"extractor.n_rings ({cfg.extractor.n_rings}) must be divisible "
+                             f"by the mesh size ({n}) with shard_extraction")
+
+    def _step(self, name: str, extraction: bool = True):
+        """The step `name` of `ops/pipeline`, or on a mesh its SPMD entry
+        point `parallel.sharded.<name>_spmd` with this Slam's mesh and
+        sharding modes bound."""
+        if self.mesh is None:
+            return getattr(pipeline, name)
+        kw = {"mesh": self.mesh, "shard_maps": self.shard_maps}
+        if extraction:
+            kw["shard_extraction"] = self.shard_extraction
+        return functools.partial(getattr(sharded, f"{name}_spmd"), **kw)
 
     def subscribe(self, callback):
         """Register a per-frame output callback (LidarSlamNode::PublishOutput
@@ -173,8 +232,9 @@ class Slam:
     def reset(self, reset_log: bool = True):
         """Reset SLAM state (Slam::Reset, Slam.cxx:164-210)."""
         cfg = self.cfg
+        n = self.mesh.size if self.shard_maps else 1
         self.maps: Dict[Keypoint, voxel_map.VoxelMap] = {
-            k: voxel_map.VoxelMap.empty(self.map_cfgs[k], self.device)
+            k: sharded_map.empty_slab(self.map_cfgs[k], n, self.device)
             for k in cfg.used_types}
         self.map_origin = np.zeros(3)
         self.Tworld = np.eye(4)
@@ -220,8 +280,38 @@ class Slam:
         """Mark the cached submap selections stale (reset, external map
         change)."""
         self._submap_cache = pipeline.init_submap_cache(self.cfg, self._map_cfgs_tuple,
-                                                        self.device)
+                                                        self.device,
+                                                        sharded=self.mesh is not None)
         self._cache_stale = True
+
+    def _reshard_maps(self):
+        """After the maps were replaced by global ones from outside the
+        sharded step (PCD load, PGO rebuild, checkpoint restore): the
+        submaps are stale, and under `shard_maps` each rank keeps its slab
+        of the global map repacked in slab order (`reshard_host`)."""
+        self._invalidate_submaps()
+        if not self.shard_maps:
+            return
+        mesh = self.mesh
+        for k in self.cfg.used_types:
+            g = sharded_map.reshard_host(self.maps[k], self.map_cfgs[k], mesh.size)
+            self.maps[k] = sharded_map.local_slab(g, mesh.rank, mesh.size, self.device)
+
+    def _rank0_writes(self, write):
+        """Run `write` on rank 0 only (every process without a mesh); on a
+        mesh every rank returns once it has run (a barrier), so a file it
+        writes exists for all of them."""
+        if self.mesh is None or self.mesh.rank == 0:
+            write()
+        if self.mesh is not None:
+            self.mesh.psum(torch.zeros(1, device=self.device))
+
+    def _global_map(self, m):
+        """A map as one map: under `shard_maps` the slabs of every rank,
+        gathered (a collective); otherwise `m` itself."""
+        if m is None or not self.shard_maps:
+            return m
+        return sharded_map.gather_slabs(self.mesh, m)
 
     def _empty_keypoints(self):
         return tuple(Keypoints.empty(self.cfg.extractor.kp_capacity(i), self.device)
@@ -262,8 +352,8 @@ class Slam:
         maps_in = tuple(self.maps.get(Keypoint(i)) for i in range(3))
         if cfg.verbosity >= 3:
             timer.init("device step")
-        res = pipeline.process_frame(ri, maps_in, self._prev_keypoints(), inp, cfg,
-                                     self._map_cfgs_tuple, first)
+        res = self._step("process_frame")(ri, maps_in, self._prev_keypoints(), inp, cfg,
+                                           self._map_cfgs_tuple, first)
         if next_frame is not None and next_frame.get("xyz") is not None \
                 and len(next_frame["xyz"]) > 0:
             self._prefetched = (next_frame["stamp"], self._build_ri(next_frame))
@@ -309,8 +399,9 @@ class Slam:
         inp = self._make_inputs(stamp)
         first = not self._maps_populated
         maps_in = tuple(self.maps.get(Keypoint(i)) for i in range(3))
-        res = pipeline.process_keypoints(kps, None, maps_in, self._prev_keypoints(), inp,
-                                         self.cfg, self._map_cfgs_tuple, first)
+        res = self._step("process_keypoints", extraction=False)(
+            kps, None, maps_in, self._prev_keypoints(), inp, self.cfg, self._map_cfgs_tuple,
+            first)
         out = self._apply_result(res, stamp, t0)
         self.last_stamp = frames[0]["stamp"]
         return out
@@ -406,7 +497,7 @@ class Slam:
                 self._graph.set_az(self.azimuthal_resolution)
                 packed, kps_flat = self._graph.eager_step(ri, stamp, first, dev_extras)
             else:
-                self._stream_state, packed, kps_flat = pipeline.process_frame_stream(
+                self._stream_state, packed, kps_flat = self._step("process_frame_stream")(
                     ri, self._stream_state, self._f32(stamp),
                     self._f32(self.azimuthal_resolution), self.cfg,
                     self._map_cfgs_tuple, first, dev_extras)
@@ -453,7 +544,8 @@ class Slam:
                 g.wire.write(g.record, kps, stamp, extras)
                 packed, kps_flat = g.step()
         else:
-            self._stream_state, packed, kps_flat = pipeline.process_keypoints_stream(
+            self._stream_state, packed, kps_flat = self._step(
+                "process_keypoints_stream", extraction=False)(
                 kps, self._stream_state, self._f32(stamp),
                 self._f32(self.azimuthal_resolution), cfg, self._map_cfgs_tuple, first,
                 tuple(on_device(e, self.device) for e in extras))
@@ -491,7 +583,7 @@ class Slam:
             ris = [r for r, _, _ in buf]
             if cfg.flat_wire and isinstance(ris[0], PackedRangeImage):
                 ris = [flatten_packed(r, cfg.wire_capacity) for r in ris]
-            self._stream_state, packed, kps_flat = pipeline.process_stream_window(
+            self._stream_state, packed, kps_flat = self._step("process_stream_window")(
                 stack_range_images(ris, self.device), self._stream_state,
                 torch.tensor(stamps, dtype=torch.float32, device=self.device),
                 self._f32(self.azimuthal_resolution), cfg, self._map_cfgs_tuple)
@@ -509,7 +601,7 @@ class Slam:
             self._run_window(buf)
             return
         for ri_host, stamp, _ in buf:
-            self._stream_state, packed, kps_flat = pipeline.process_frame_stream(
+            self._stream_state, packed, kps_flat = self._step("process_frame_stream")(
                 to_device_range_image(ri_host, self.device), self._stream_state,
                 self._f32(stamp), self._f32(self.azimuthal_resolution), self.cfg,
                 self._map_cfgs_tuple, False)
@@ -544,13 +636,15 @@ class Slam:
                 se3.hmat_to_pose(kf_rel).astype(np.float32), self.kf_counter,
                 np.round(self.map_origin / res_m).astype(np.int32),
                 max(self.n_frames, 1), self.mapping_mode != MappingMode.NONE,
-                cfg, self._map_cfgs_tuple, self.device)
+                cfg, self._map_cfgs_tuple, self.device, self.mesh, self.shard_maps)
         else:
-            state = pipeline.init_stream_state(cfg, self._map_cfgs_tuple, self.device)
+            state = pipeline.init_stream_state(cfg, self._map_cfgs_tuple, self.device,
+                                               self.mesh, self.shard_maps)
             state = state._replace(map_update=torch.full(
                 (), self.mapping_mode != MappingMode.NONE, dtype=torch.bool,
                 device=self.device))
-        if self.device.type == "cuda":
+        # a mesh step runs eagerly: its collectives are driven from the host
+        if self.device.type == "cuda" and self.mesh is None:
             if self._graph is None:
                 ecfg = cfg.extractor
                 cap = (cfg.wire_capacity if cfg.flat_wire else 0) \
@@ -906,9 +1000,10 @@ class Slam:
         if use_device_backend:
             from lidarslam_tpu_torch.backend.posegraph_device import optimize_pose_graph_device
 
+            # on a mesh the segment interiors shard over the ranks
             optimized, cost = optimize_pose_graph_device(
                 poses, times, covs, **gps, n_segments=n_segments,
-                verbose=cfg.verbosity >= 2, device=self.device)
+                verbose=cfg.verbosity >= 2, device=self.device, mesh=self.mesh)
         else:
             optimized, cost = posegraph.optimize_pose_graph(
                 poses, times, covs, **gps, verbose=cfg.verbosity >= 2)
@@ -975,7 +1070,7 @@ class Slam:
         if last_bbox is not None:
             res = voxel_map.effective_resolution(next(iter(self.map_cfgs.values())))
             self.map_origin = self.map_origin + off.astype(np.float64) * res
-        self._invalidate_submaps()
+        self._reshard_maps()
 
     def _replay_undistort(self, pts, point_times, prev_entry, cur_entry):
         """Per-point slerp between consecutive optimized poses (Slam.cxx:426-440)."""
@@ -1020,17 +1115,20 @@ class Slam:
         return self.covariance.copy()
 
     def get_map_points(self, k: Keypoint, clean: bool = False):
-        """World-frame map points (RollingGrid::Get)."""
-        xyz, inten, t, fixed = voxel_map.gather_valid_points(self.maps[k], clean,
-                                                            self.map_cfgs[k])
+        """World-frame map points (RollingGrid::Get). Under `shard_maps` a
+        collective: every rank calls it and gets every slab's points."""
+        xyz, inten, t, fixed = voxel_map.gather_valid_points(
+            self._global_map(self.maps[k]), clean, self.map_cfgs[k])
         return xyz + self.map_origin.astype(np.float32), inten, t, fixed
 
     def get_target_submap(self, k: Keypoint) -> np.ndarray:
         """World-frame points of the submap the matcher targets
         (Slam::GetTargetSubMap): the selection of the last rebuild, or the
         whole map when none is valid (before the first localization, after
-        a map update, for a decaying type). In a streaming segment it reads
-        the device state, which waits for the enqueued sweeps."""
+        a map update, for a decaying type, and always on a mesh, which
+        keeps no selection). In a streaming segment it reads the device
+        state, which waits for the enqueued sweeps. Under `shard_maps` a
+        collective: every rank calls it."""
         ti = int(k)
         origin = self.map_origin.astype(np.float32)
         if self._stream_state is not None:
@@ -1045,6 +1143,7 @@ class Slam:
             stale = bool(self._cache_stale)
         if m is None:
             return np.zeros((0, 3), np.float32)
+        m = self._global_map(m)
         if cache is None or stale:
             xyz, _, _, _ = voxel_map.gather_valid_points(m, False, self.map_cfgs[k])
             return xyz + origin
@@ -1138,20 +1237,30 @@ class Slam:
         """Write one `<prefix><type>s.pcd` per enabled map
         (Slam::SaveMapsToPCD, Slam.cxx:504-516): WORLD points with
         intensity, time and the fixed flag as label. `compressed` writes
-        PCL `binary_compressed` (LZF), the reference's PCDFormat=2."""
+        PCL `binary_compressed` (LZF), the reference's PCDFormat=2. Under
+        `shard_maps` a collective (the slabs are gathered); on a mesh rank 0
+        writes the files and every rank returns once they exist."""
         from lidarslam_tpu_torch.io import pcd
 
-        for k in self.cfg.used_types:
-            xyz, inten, t, fixed = voxel_map.gather_valid_points(self.maps[k], clean,
-                                                                self.map_cfgs[k])
-            pcd.save_pcd(f"{file_prefix}{KEYPOINT_NAMES[k]}s.pcd",
-                         xyz + self.map_origin.astype(np.float32), intensity=inten, time=t,
-                         label=fixed.astype(np.uint8), binary=binary, compressed=compressed)
+        clouds = {k: voxel_map.gather_valid_points(self._global_map(self.maps[k]), clean,
+                                                   self.map_cfgs[k])
+                  for k in self.cfg.used_types}
+
+        def write():
+            for k, (xyz, inten, t, fixed) in clouds.items():
+                pcd.save_pcd(f"{file_prefix}{KEYPOINT_NAMES[k]}s.pcd",
+                             xyz + self.map_origin.astype(np.float32), intensity=inten, time=t,
+                             label=fixed.astype(np.uint8), binary=binary,
+                             compressed=compressed)
+        self._rank0_writes(write)
 
     def load_maps_from_pcd(self, file_prefix: str, reset_maps: bool = True):
         """Load per-type maps (a missing file leaves its map as it is); the
         points are fixed when the mapping mode keeps the initial map
-        immutable (Slam::LoadMapsFromPCD, Slam.cxx:519-543)."""
+        immutable (Slam::LoadMapsFromPCD, Slam.cxx:519-543). On a mesh every
+        rank reads the files; under `shard_maps` the maps are built whole
+        and each rank keeps its slab (a collective when `reset_maps` is
+        off: the slabs are gathered first)."""
         from lidarslam_tpu_torch.io import pcd
 
         dev = self.device
@@ -1159,6 +1268,8 @@ class Slam:
             self.maps = {k: voxel_map.VoxelMap.empty(self.map_cfgs[k], dev)
                          for k in self.cfg.used_types}
             self.map_origin = np.zeros(3)
+        else:
+            self.maps = {k: self._global_map(m) for k, m in self.maps.items()}
         fixed = self.mapping_mode in (MappingMode.NONE, MappingMode.ADD_KPTS_TO_FIXED_MAP)
         for k in self.cfg.used_types:
             path = f"{file_prefix}{KEYPOINT_NAMES[k]}s.pcd"
@@ -1174,7 +1285,7 @@ class Slam:
                 self.map_cfgs[k], fixed=fixed)
             if len(pts):
                 self._maps_populated = True
-        self._invalidate_submaps()
+        self._reshard_maps()
 
     def save_checkpoint(self, path: str):
         """Snapshot the maps, rolling origin, pose state and trajectory log
@@ -1183,7 +1294,10 @@ class Slam:
         `prev_keypoints<type>_<field>`, which the JAX package does not write
         and ignores: with them the first sweep after a load registers its
         ego-motion as the uninterrupted run does (ROADMAP Queue 3, D7).
-        Keypoint logs are not included."""
+        Keypoint logs are not included. Under `shard_maps` a collective
+        (the slabs are gathered into the global layout, the JAX package's
+        sharded map); on a mesh rank 0 writes the file and every rank
+        returns once it exists."""
         arrs = {
             "map_origin": self.map_origin, "Tworld": self.Tworld,
             "PreviousTworld": self.PreviousTworld, "Trelative": self.Trelative,
@@ -1200,14 +1314,14 @@ class Slam:
             if self.log_trajectory else np.zeros((0, 6, 6)),
         }
         for k in self.cfg.used_types:
-            for field, v in zip(voxel_map.VoxelMap._fields, self.maps[k]):
+            for field, v in zip(voxel_map.VoxelMap._fields, self._global_map(self.maps[k])):
                 arrs[f"map{int(k)}_{field}"] = v.cpu().numpy()
         kps = self._device_keypoints
         if kps is not None and all(kp is not None for kp in kps):
             for i, kp in enumerate(kps):
                 for field, v in zip(Keypoints._fields, kp):
                     arrs[f"prev_keypoints{i}_{field}"] = v.cpu().numpy()
-        np.savez_compressed(path, **arrs)
+        self._rank0_writes(lambda: np.savez_compressed(path, **arrs))
 
     def load_checkpoint(self, path: str):
         """Restore a save_checkpoint snapshot of either package (the config
@@ -1216,7 +1330,9 @@ class Slam:
         submaps are stale. The previous sweep's keypoints come back when the
         file holds them (this port's); without them (the JAX package's) the
         first sweep's ego-motion registration has nothing to match, as in
-        the JAX package."""
+        the JAX package. Under `shard_maps` each rank keeps its slab of the
+        file's maps (a JAX mesh checkpoint holds them in slab order already,
+        which the repack keeps)."""
         from lidarslam_tpu_torch import state as state_mod
 
         z = np.load(path)
@@ -1251,7 +1367,7 @@ class Slam:
                    for i, kp in enumerate(kps)):
                 raise ValueError("checkpoint keypoint capacity mismatch")
             self._device_keypoints = kps
-        self._invalidate_submaps()
+        self._reshard_maps()
 
     # ------------------------------------------------------------------
     # External sensor API (Slam.cxx:1584-1598); weights and the time offset
@@ -1345,7 +1461,9 @@ class Slam:
     def get_debug_array(self) -> dict:
         """Per-keypoint matching debug arrays (Slam::GetDebugArray,
         Slam.cxx:635-657): rejection cause (MatchStatus code) and fit weight
-        for every keypoint of the last add_frame's localization."""
+        for every keypoint of the last add_frame's localization. On a mesh
+        the step has already gathered every rank's share, so every rank
+        holds them all and this reads no other rank."""
         out = {}
         if self._last_statuses is None:
             return out
@@ -1373,7 +1491,9 @@ class Slam:
         return {k: v.cpu().numpy() for k, v in ext.debug.items()}
 
     def get_debug_information(self) -> dict:
-        """Scalar debug metrics (Slam::GetDebugInformation, Slam.cxx:611-632)."""
+        """Scalar debug metrics (Slam::GetDebugInformation, Slam.cxx:611-632).
+        The map overflow counters are global totals on every rank (the step
+        sums each slab's drops), so this is no collective."""
         return {
             "total_matched_keypoints": int(self.total_matched_keypoints),
             "edge_matches": int(self.match_counts[0]),
@@ -1392,6 +1512,8 @@ class Slam:
         from lidarslam_tpu_torch import state as state_mod
 
         state_mod.load_numpy_state(self, state)
+        if self.mesh is not None:
+            self._reshard_maps()
 
     def _log(self, msg):
         if self.cfg.verbosity > 0:

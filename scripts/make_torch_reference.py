@@ -2,7 +2,7 @@
 """Write the JAX package's VLP-16 trajectories for the PyTorch port.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_reference.py \
-        [--which bench|full|ext|float|rig|pgo|cli|all]
+        [--which bench|full|ext|float|rig|pgo|cli|mesh|all]
 
 Runs the JAX package's `Slam` on the CPU over the first `chip_smoke.N_FRAMES`
 (30) sweeps of the bench sequence (weaving street trajectory), through
@@ -58,7 +58,15 @@ Runs the JAX package's `Slam` on the CPU over the first `chip_smoke.N_FRAMES`
   `aggregate_points`), the per-frame extraction counts (`extract_counts`:
   edge, plane, blob) and azimuthal resolutions (`extract_az`), and
   `ingest`. The CLI has no ingest switch, so this set takes the native
-  ingest, and requires it.
+  ingest, and requires it;
+- `mesh` (~8 min): the JAX package's `Slam(cfg, mesh=make_mesh(2))` on a
+  2-device CPU mesh (the script sets
+  `XLA_FLAGS=--xla_force_host_platform_device_count=2` before jax loads,
+  unless the flags already name a device count), through `add_frame`: the
+  bench drive keypoint-sharded (`bench_kp_*`), with `shard_extraction`
+  (`bench_ext_*`) and with `shard_maps` (`bench_maps_*`), and the full
+  drive with `shard_maps` (`full_maps_*`) -> `vlp16_mesh_ref.npz`, each
+  run's `_poses`, `_n_matches`, `_failure` and `_overlap`, and `stamps`.
 
 Each holds per frame the poses (float64 4x4), `n_matches`, `failure`,
 `overlap`, `comply_motion_limits`, `stamps` and, in the files written
@@ -80,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 from pathlib import Path
@@ -323,13 +332,44 @@ def _cli(frames, path):
           f"extraction {rec['extract_counts'].tolist()}", file=sys.stderr)
 
 
+# the mesh references' runs: (key, drive, Slam flags)
+MESH_RUNS = (("bench_kp", "bench", {}), ("bench_ext", "bench", {"shard_extraction": True}),
+             ("bench_maps", "bench", {"shard_maps": True}),
+             ("full_maps", "full", {"shard_maps": True}))
+MESH_DEVICES = 2
+
+
+def _mesh(Slam, cfgs, drives, path):
+    """`MESH_RUNS` on a `MESH_DEVICES`-device CPU mesh, sync path."""
+    from lidarslam_tpu.parallel import sharded
+
+    mesh = sharded.make_mesh(MESH_DEVICES)
+    arrs = {}
+    for key, drive, kw in MESH_RUNS:
+        slam = Slam(cfgs[drive], mesh=mesh, **kw)
+        results = [slam.add_frame(f) for f in drives[drive]]
+        print(f"{key}: n_matches " + " ".join(str(r["n_matches"]) for r in results),
+              file=sys.stderr)
+        arrs[f"{key}_poses"] = np.asarray([r["pose"] for r in results], np.float64)
+        arrs[f"{key}_n_matches"] = np.asarray([r["n_matches"] for r in results], np.int64)
+        arrs[f"{key}_failure"] = np.asarray([r["failure"] for r in results], bool)
+        arrs[f"{key}_overlap"] = np.asarray([r["overlap"] for r in results], np.float64)
+    arrs["stamps"] = np.asarray([f["stamp"] for f in drives["bench"]], np.float64)
+    np.savez_compressed(path, mesh_devices=np.int64(MESH_DEVICES), **arrs)
+    print(f"wrote {path}", file=sys.stderr)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=str(ROOT / "lidarslam_tpu_torch" / "data"))
     ap.add_argument("--which", choices=("bench", "full", "ext", "float", "rig", "pgo", "cli",
-                                        "all"), default="all")
+                                        "mesh", "all"), default="all")
     args = ap.parse_args()
 
+    if args.which in ("mesh", "all") and \
+            "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_"
+                                   f"platform_device_count={MESH_DEVICES}").strip()
     import jax
 
     jax.config.update("jax_platform_name", "cpu")
@@ -381,6 +421,10 @@ def main():
     if args.which in ("cli", "all"):
         native.available = native_available
         _cli(frames(True), out / "vlp16_cli_ref.npz")
+    if args.which in ("mesh", "all"):
+        native.available = lambda: False
+        _mesh(Slam, {"bench": cfg, "full": full_jax_config(cfg)},
+              {"bench": frames(False), "full": frames(True)}, out / "vlp16_mesh_ref.npz")
     print(f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
 

@@ -709,3 +709,39 @@ def test_cuda_cli_run_matches_cpu(cuda, tmp_path, capsys, follow):
     for g, w in zip(json.loads(got), json.loads(want)):
         assert abs(g.pop("azimuthal_resolution") - w.pop("azimuthal_resolution")) < 1e-6
         assert g == w
+
+
+def _mesh_against_single(cuda, world, backend, modes, n=6):
+    """`slam_modes` (tests/torch_mesh_ranks.py) on `world` ranks of
+    `backend` on the card against a single-device run on the card: every
+    rank's sync and stream poses within 1e-3 m, and the ranks bit-equal."""
+    import torch_mesh_ranks as R
+    from lidarslam_tpu_torch.parallel.launch import launch
+
+    ranks = launch(R.slam_modes, world, backend=backend,
+                   device="cuda:0" if backend == "gloo" else None, timeout_s=600,
+                   args=(modes, n, n))
+    single = Slam(R.small_config(), device=cuda)
+    ref = R.pose_stack([single.add_frame(f) for f in R.golden(n)])
+    for mode in modes:
+        for res in ranks:
+            got = res[mode]
+            assert not any(got["failed"])
+            assert R.pose_divergence(got["poses"], ref)[0] < R.POSE_M, mode
+            assert R.pose_divergence(got["stream"], got["poses"])[0] < R.POSE_M, mode
+            np.testing.assert_array_equal(got["poses"], ranks[0][mode]["poses"])
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_gloo_two_ranks_share_the_card(cuda):
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one card): the
+    collectives stage through pinned host memory, the k-NN runs on the
+    card in each rank; both the keypoint-sharded and slab-sharded modes."""
+    _mesh_against_single(cuda, 2, "gloo", ("kp", "maps"))
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_nccl(cuda):
+    """NCCL at the card count (capped at 4): world 1 on a one-card
+    machine, whose collectives still go through NCCL."""
+    _mesh_against_single(cuda, min(torch.cuda.device_count(), 4), "nccl", ("maps",))

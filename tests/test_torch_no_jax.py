@@ -58,6 +58,14 @@ from lidarslam_tpu_torch.server import SlamClient, SlamServer
 from lidarslam_tpu_torch.ros_node import LidarSlamNode, RospyFacade
 from lidarslam_tpu_torch.paraview_plugin import SlamFilterCore
 assert callable(cli.main) and callable(ros_node.main)
+# the multi-device layer
+from lidarslam_tpu_torch.parallel import launch, sharded, sharded_map
+from lidarslam_tpu_torch.parallel.sharded import Mesh, make_mesh
+assert callable(launch.launch) and callable(sharded_map.shard_roll)
+for name in ("sharded_icp_register", "process_frame_spmd", "process_keypoints_spmd",
+             "process_frame_stream_spmd", "process_stream_window_spmd",
+             "process_keypoints_stream_spmd"):
+    assert callable(getattr(sharded, name)), name
 assert callable(yaml_config.load_config) and callable(export.aggregate_logged_frames)
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'lidarslam_tpu.'))
@@ -95,8 +103,11 @@ def test_no_jax_import_anywhere_in_the_port():
     """A static scan of every module of the port and of chip_smoke.py: the
     import check above runs what module import runs, not the lazy imports
     inside functions."""
-    files = sorted((ROOT / "lidarslam_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "lidarslam_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_ranks.py"]
     assert len(files) > 40
+    assert {"sharded.py", "sharded_map.py", "launch.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     bad = {str(f.relative_to(ROOT)): hits for f in files if (hits := _package_imports(f))}
     assert not bad, bad
 
@@ -126,6 +137,18 @@ def test_package_imports_without_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=tmp_path,
                          env=_env(PYTHONPATH=str(ROOT)), capture_output=True,
                          text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_rank_module_imports_without_jax(tmp_path):
+    """The module the mesh tests' spawned ranks import (their functions)
+    loads neither jax nor the JAX package."""
+    code = ("import sys; import torch_mesh_ranks; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'lidarslam_tpu')); print(bad); assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=_env(PYTHONPATH=f"{ROOT}{os.pathsep}{ROOT / 'tests'}"),
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr + out.stdout
 
 
