@@ -161,19 +161,37 @@ the CUDA toolkit. Phases, each printed as it goes:
    vlp16_mesh_ref.npz (the JAX package on a 2-device CPU mesh), the ranks
    bit-equal, its k-NN wrapper calls equal to each kernel's executions
    counted on the device from 0 just before the drive, its ms/frame beside
-   phase 4's; the bench stream on the mesh (eager windows of 8) within
-   1e-3 m of the mesh's sync path, with its ms/frame; the full drive with
-   `shard_maps` within 1e-3 m of phase 6's run and of JAX's mesh run,
-   overlap within 0.01; 10 rig acquisitions through `add_frames` with
-   `shard_maps`, 0 failed; the 1000-pose Schur over 8 segments sharded
-   over the ranks within 1e-10 relative of the unsharded solve, both
-   timed. The NCCL group: the bench drive with `shard_maps`, within 1e-3 m
-   of phase 4's configuration without `reuse_knn` (what `shard_maps` runs)
-   and of JAX's mesh run. Every drive of either group records the k-NN
-   calls of one frame, and rank 0 holds each call shape of its group (a
-   rank's localization slice against the whole submap, the slab scans of
-   the gathered queries, the ego registration, the overlap) against the
-   plain version on the path's own inputs, timed beside its bound.
+   phase 4's; the bench stream on the mesh keypoint-sharded (30 sweeps,
+   with its ms/frame), with `shard_extraction` and with `shard_maps` (their
+   first window each), in eager windows of 8 (gloo stages every collective
+   through the host, D10), within 1e-3 m of the mesh's sync path and of
+   vlp16_mesh_stream_ref.npz (the JAX package's mesh stream on a 2-device
+   CPU mesh); the full drive with `shard_maps` within 1e-3 m of phase 6's
+   run and of JAX's mesh run, overlap within 0.01; 10 rig acquisitions
+   through `add_frames` with `shard_maps`, 0 failed; the 1000-pose Schur
+   over 8 segments sharded over the ranks within 1e-10 relative of the
+   unsharded solve, both timed. The NCCL group (the card count from
+   `nvidia-smi -L` printed beside it): the bench drive with `shard_maps`,
+   within 1e-3 m of phase 4's configuration without `reuse_knn` (what
+   `shard_maps` runs) and of JAX's mesh run; then the bench stream
+   keypoint-sharded, with `shard_extraction` and with `shard_maps` through
+   the captured graph (`_mesh_graph_stream`: each rank's SPMD step with its
+   NCCL collectives, one replay per sweep) and, over its first window,
+   eagerly on the same group: 0 failed, one replay bit-equal to the eager
+   step from the same state (that step run under
+   set_sync_debug_mode("error")), poses within 1e-3 m / 0.01 rad of
+   vlp16_mesh_stream_ref.npz and of the eager stream, the ranks bit-equal,
+   ms/frame over frames 9-24, and from the same stream's frames 25-29
+   profiled on rank 0 device busy, idle share and each k-NN kernel's
+   executions per replayed frame (2 keypoint-sharded and with `shard_extraction`, 6 with
+   `shard_maps`, `_mesh_stream_executions`); and 10 rig acquisitions
+   through `add_frames_async` with `shard_maps`, the rig's step graph
+   captured on the mesh, within 1e-3 m of the eager rig stream. Every drive
+   of either group records the k-NN calls of one frame, and rank 0 holds
+   each call shape of its group (a rank's localization slice against the
+   whole submap, the slab scans of the gathered queries, the ego
+   registration, the overlap) against the plain version on the path's own
+   inputs, timed beside its bound.
 
 Phases 4-7 and 9 pin the port's host ingest to numpy (`numpy_ingest`), on
 which their JAX references were made, as do phase 11's bench and full
@@ -431,6 +449,32 @@ def phase_build():
         for line in ptxas.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] ptxas {line.strip()}", flush=True)
+
+
+# seconds spent in the helpers `_timed` wraps (phase by phase): where the
+# script's time goes, printed with each phase's end
+SPENT = collections.defaultdict(lambda: [0.0, 0])
+
+
+def _timed(fn, name=None):
+    """`fn`, adding its wall seconds and calls to SPENT[name]."""
+    name = name or fn.__name__
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            SPENT[name][0] += time.perf_counter() - t0
+            SPENT[name][1] += 1
+    return wrapped
+
+
+def _spent_line() -> str:
+    out = ", ".join(f"{k} {v[0]:.1f} s ({v[1]})" for k, v in
+                    sorted(SPENT.items(), key=lambda kv: -kv[1][0]))
+    SPENT.clear()
+    return out
 
 
 def _median_ms(fn, reps=20):
@@ -841,7 +885,7 @@ def _readings(source, n_frames: int, executed: dict):
             "knn_ms": cat["knn"] / n_frames}
 
 
-def _stream_run_ms(slam, items, enqueue=None, worker=False):
+def _stream_run_ms(slam, items, enqueue=None, worker=False, tail=None):
     """Enqueue `items` in order through `enqueue` (by default
     `slam.add_frame_async`; a rig's acquisitions go through
     `slam.add_frames_async`), each as its own index, time items TIMED
@@ -849,7 +893,9 @@ def _stream_run_ms(slam, items, enqueue=None, worker=False):
     section 2 defines it, and the flush's results). With `worker`, the
     timed full windows are stacked, uploaded and replayed on one worker
     thread while this one builds the next sweeps, as the JAX package's
-    window worker does; the port dispatches inline (ROADMAP Queue 3, D5)."""
+    window worker does; the port dispatches inline (ROADMAP Queue 3, D5).
+    With `tail`, the items after TIMED are enqueued and their window
+    replayed inside `tail(fn)` (a profiler window), before the flush."""
     import torch
 
     enqueue = enqueue or slam.add_frame_async
@@ -867,8 +913,9 @@ def _stream_run_ms(slam, items, enqueue=None, worker=False):
             torch.cuda.synchronize()
 
     t0 = t1 = 0.0
+    rest = TIMED.stop if tail is not None else len(items)
     try:
-        for i, item in enumerate(items):
+        for i, item in enumerate(items[:rest]):
             if i == TIMED.start:
                 settle()
                 if worker:
@@ -882,6 +929,13 @@ def _stream_run_ms(slam, items, enqueue=None, worker=False):
     finally:
         if pool is not None:
             pool.shutdown()
+    if tail is not None:
+        def run_rest():
+            for i in range(rest, len(items)):
+                _require(enqueue(items[i]) == i, f"item {i} was not enqueued as {i}")
+            slam._drain_window()
+            torch.cuda.synchronize()
+        tail(run_rest)
     return 1000 * (t1 - t0) / len(TIMED), slam.flush()
 
 
@@ -1080,11 +1134,12 @@ def numpy_ingest():
         native.available = real
 
 
-def _replay_vs_eager(tag, g, record, step, cfg, map_cfgs, path_calls=None):
+def _replay_vs_eager(tag, g, record, step, cfg, map_cfgs, path_calls=None, exact=False):
     """The eager step of `step` from a copy of the graph's state on the
     record's inputs under set_sync_debug_mode("error") (its k-NN calls'
     inputs appended to `path_calls` when given), against one replay of the
-    graph `g` on `record`. Returns (m, deg, total matches)."""
+    graph `g` on `record`; with `exact` every scalar the step packs must be
+    bit-equal. Returns (m, deg, total matches)."""
     import numpy as np
     import torch
 
@@ -1111,8 +1166,12 @@ def _replay_vs_eager(tag, g, record, step, cfg, map_cfgs, path_calls=None):
     if path_calls is not None:
         path_calls.extend(calls)
     g.graph.replay()
-    ue = pipeline.unpack_scalars(packed_eager.cpu().numpy()[:64])
-    ur = pipeline.unpack_scalars(g._outputs[0].cpu().numpy()[:64])
+    e, r = packed_eager.cpu().numpy(), g._outputs[0].cpu().numpy()
+    _require(not exact or np.array_equal(e, r),
+             f"[{tag}] replay != eager step in {int(np.sum(e != r))} of {e.size} packed "
+             "scalars")
+    ue = pipeline.unpack_scalars(e[:64])
+    ur = pipeline.unpack_scalars(r[:64])
     dt, dr = pose_errors(se3.pose_to_hmat(ur["pose"]), se3.pose_to_hmat(ue["pose"]))
     _require(dt <= REPLAY_TOL_M and dr <= REPLAY_TOL_DEG and ue["total"] == ur["total"]
              and np.array_equal(ue["counts"], ur["counts"]),
@@ -3075,6 +3134,99 @@ def _mesh_record(results, ms):
             "failed": sum(bool(r["failure"]) for r in results), "ms_frame": ms}
 
 
+MESH_STREAM_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "vlp16_mesh_stream_ref.npz"
+MESH_STREAM_MODES = (("kp", {}), ("ext", {"shard_extraction": True}),
+                     ("maps", {"shard_maps": True}))
+
+
+def _mesh_stream_executions(cfg, kw) -> int:
+    """Executions of each k-NN kernel in one streamed bench frame on a rank:
+    one localization call per type with `reuse_knn`; `shard_maps` runs
+    without it (`_without_reuse`), so one per type in each ICP round."""
+    rounds = cfg.localization_icp_max_iter if kw.get("shard_maps") else 1
+    return len(cfg.used_types) * rounds
+
+
+def _mesh_graph_stream(mesh, name, kw, frames, card):
+    """The bench stream on an NCCL mesh in mode `name` through the captured
+    graph (one replay of the rank's SPMD step per sweep): timed by
+    `_stream_run_ms` over frames TIMED, the frames after them under
+    torch.profiler on rank 0 (device busy and each k-NN kernel's executions
+    per replay, from the same stream as the time, so the idle share reads
+    one stream's own level), then one replay from the stream's last state
+    against the eager step under set_sync_debug_mode("error"), bit for bit;
+    and its first window eagerly (capture off). Returns plain values."""
+    import numpy as np
+    import torch
+
+    from lidarslam_tpu_torch import Slam
+    from lidarslam_tpu_torch.ops import cuda_knn
+    from lidarslam_tpu_torch.ops.frame import build_range_image, flatten_packed
+
+    tag = f"mesh nccl x{mesh.size} stream {name}"
+    cfg = bench_config(16, 1800)
+    slam = Slam(cfg, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    cuda_knn.LAUNCHES = 0
+    cuda_knn.reset_executions(mesh.device)
+    prof, calls, executed, n_tail = [], [], [], len(frames) - TIMED.stop
+
+    def tail(fn):   # the profiled frames: their launches are not the stream's
+        calls.append(cuda_knn.LAUNCHES)
+        executed.append(cuda_knn.executions(mesh.device))
+        if mesh.rank != 0:
+            return fn()
+        prof.append(_profile(fn, n_tail))
+    ms, outs = _stream_run_ms(slam, frames, tail=tail)
+    g = slam._graph
+    _require(g is not None and g.graph is not None and g.mesh is mesh,
+             f"[{tag}] the stream replayed no CUDA graph")
+    want = _mesh_stream_executions(cfg, kw)
+    _require(not prof or all(n == want * n_tail for n in prof[0]["knn"].values()),
+             f"[{tag}] k-NN kernel executions {prof and prof[0]['knn']} in {n_tail} "
+             f"replays (expected {want} each a frame)")
+    f = frames[-1]
+    host = build_range_image(f["xyz"], f["intensity"], f["laser_id"], f["time"],
+                             cfg.extractor.n_rings, cfg.extractor.max_ring_points,
+                             packed=True, device=False)
+    record = g.wire.pack([flatten_packed(host, g.wire.capacity)],
+                         [np.float32(f["stamp"])]).to(mesh.device)[0]
+    dt, dr, total = _replay_vs_eager(tag, g, record, g._step_fn, cfg, slam._map_cfgs_tuple,
+                                     exact=True)
+    # the same stream eagerly over its first window: frame 0, then 8 sweeps
+    eager = Slam(cfg, mesh=mesh, **kw)
+    eager._stream_captured = lambda: False
+    for f in frames[:WINDOW + 1]:
+        eager.add_frame_async(f)
+    outs_eager = eager.flush()
+    _require(eager._graph is None, f"[{tag}] the eager stream captured a graph")
+    return {**_mesh_record(outs, ms), "eager": _mesh_record(outs_eager, None),
+            "calls": calls[0], "executions": executed[0], "replay_vs_eager": (dt, dr, total),
+            "profile": prof[0] if prof else None, "profiled": n_tail}
+
+
+def _mesh_rig_stream(mesh, acq, offset):
+    """The rig's acquisitions through `add_frames_async` + `flush` with
+    `shard_maps` on an NCCL mesh: replayed (one extraction graph per device
+    and the rig's step graph) and eagerly (capture off)."""
+    from lidarslam_tpu_torch import Slam
+
+    out = {}
+    for captured in (True, False):
+        slam = Slam(rig_config(), mesh=mesh, shard_maps=True)
+        slam.set_base_to_lidar_offset(1, offset)
+        if not captured:
+            slam._stream_captured = lambda: False
+        for a in acq:
+            slam.add_frames_async(a)
+        outs = slam.flush()
+        rig = slam._rig_graph
+        _require((rig is not None and rig.graph is not None) == captured,
+                 f"[mesh nccl rig stream] captured={captured}, the rig graph {rig}")
+        out["graph" if captured else "eager"] = _mesh_record(outs, None)
+    return out
+
+
 def _mesh_rank(mesh, frames_path: str, n_frames: int, card: str):
     """Phase 11 on one rank: the gloo group runs everything below, the NCCL
     group the bench drive with `shard_maps`. Returns plain values. Each
@@ -3116,18 +3268,33 @@ def _mesh_rank(mesh, frames_path: str, n_frames: int, card: str):
                 print(f"[mesh] {group} bench {name}: {ms:.2f} ms/frame, "
                       f"{cuda_knn.LAUNCHES} k-NN wrapper calls ({card})", flush=True)
         if not gloo:
-            if keep:
-                out["shapes"] = _mesh_call_cases(recorded, card)
-            return out
-        slam = Slam(bench_config(16, 1800), mesh=mesh)
-        ms, outs = _stream_run_ms(slam, data["bench"])
-        out["stream"] = _mesh_record(outs, ms)
+            out["streams"] = {name: _mesh_graph_stream(mesh, name, kw, data["bench"], card)
+                              for name, kw in MESH_STREAM_MODES}
+        else:   # keypoint-sharded timed over the 30 sweeps, the other modes over a window
+            out["streams"] = {}
+            for name, kw in MESH_STREAM_MODES:
+                slam = Slam(bench_config(16, 1800), mesh=mesh, **kw)
+                if name == "kp":
+                    ms, outs = _stream_run_ms(slam, data["bench"])
+                else:
+                    ms = None
+                    for f in data["bench"][:WINDOW + 1]:
+                        slam.add_frame_async(f)
+                    outs = slam.flush()
+                _require(slam._graph is None, f"[mesh gloo stream {name}] captured a graph")
+                out["streams"][name] = _mesh_record(outs, ms)
+    acq, offset = render_rig(MESH_RIG_ACQ)
+    if not gloo:
+        out["rig_stream"] = _mesh_rig_stream(mesh, acq, offset)
+        if keep:
+            out["shapes"] = _mesh_call_cases(recorded, card)
+        return out
+    with numpy_ingest():
         slam = Slam(full_config(), mesh=mesh, shard_maps=True)
         results, ms, calls = _mesh_drive(slam, data["full"], record_at=PROFILED.start,
                                          keep_inputs=keep)
         out["full"] = _mesh_record(results, ms)
         recorded.append((f"{group} full maps", calls))
-    acq, offset = render_rig(MESH_RIG_ACQ)
     slam = Slam(rig_config(), mesh=mesh, shard_maps=True)
     slam.set_base_to_lidar_offset(1, offset)
     res, ms, _ = _mesh_drive(slam, acq, add="add_frames")
@@ -3192,7 +3359,7 @@ def _mesh_ranks_equal(tag, ranks, key):
                  f"[{tag}] {key}: the ranks' poses differ")
 
 
-def phase_mesh(card: str, frames, distorted, sync: dict, full: dict):
+def phase_mesh(card: str, frames, distorted, sync: dict, full: dict, stream_ms: float):
     """The mesh on the card (see the module docstring, phase 11): a gloo
     group of MESH_GLOO_WORLD ranks sharing cuda:0 and an NCCL group at
     min(device_count, 4), each started by `parallel.launch`."""
@@ -3268,14 +3435,30 @@ def phase_mesh(card: str, frames, distorted, sync: dict, full: dict):
                   f"{sync['ms_frame']:.2f}); {w1[0]:.3e} m / {w1[1]:.3e} deg from {what}, "
                   f"{w2[0]:.3e} m / {w2[1]:.3e} deg from JAX's mesh; {got['launches']} k-NN "
                   f"calls = executions {ex} ({card})", flush=True)
-    st = g0["stream"]
-    _require(st["failed"] == 0, "[mesh stream] failed frames")
-    _mesh_ranks_equal("mesh stream", gloo, "stream")
-    ws = _mesh_check_poses("mesh stream", st["poses"], g0["kp"]["poses"], "the mesh's sync path")
-    rows["gloo stream"] = st["ms_frame"]
-    print(f"[mesh stream] eager windows of {WINDOW}: {st['ms_frame']:.2f} ms/frame over "
-          f"frames {TIMED.start}-{TIMED.stop - 1}; {ws[0]:.3e} m from the mesh's sync path "
-          f"({card})", flush=True)
+    sref = np.load(MESH_STREAM_REF_PATH)
+    _require(int(sref["mesh_devices"]) == MESH_GLOO_WORLD,
+             f"{MESH_STREAM_REF_PATH.name} was made on {int(sref['mesh_devices'])} devices")
+    for name, _ in MESH_STREAM_MODES:
+        tag = f"mesh gloo stream {name}"
+        st = g0["streams"][name]
+        _require(st["failed"] == 0, f"[{tag}] {st['failed']} failed frames")
+        _mesh_ranks_equal(tag, [r["streams"] for r in gloo], name)
+        k = min(len(st["poses"]), n)
+        ws = _mesh_check_poses(tag, st["poses"][:k], g0[name]["poses"][:k],
+                               "the mesh's sync path")
+        wj = _mesh_check_poses(tag, st["poses"], sref[f"bench_{name}_poses"][:len(st["poses"])],
+                               f"JAX's mesh stream ({MESH_STREAM_REF_PATH.name})")
+        timed = "not timed" if st["ms_frame"] is None else \
+            f"{st['ms_frame']:.2f} ms/frame over frames {TIMED.start}-{TIMED.stop - 1}"
+        if st["ms_frame"] is not None:
+            rows[f"gloo stream {name}"] = st["ms_frame"]
+        print(f"[{tag}] eager windows of {WINDOW} (gloo stages every collective through the "
+              f"host, D10), {len(st['poses'])} sweeps: {timed}; {ws[0]:.3e} m from the mesh's "
+              f"sync path, {wj[0]:.3e} m / {wj[1]:.3e} deg from JAX's mesh stream ({card})",
+              flush=True)
+    streams = _check_nccl_streams(card, nccl, sref, stream_ms=stream_ms)
+    for name, st in streams.items():
+        rows[f"nccl x{len(nccl)} stream {name} (graph)"] = st["ms_frame"]
     fu = g0["full"]
     _require(fu["failed"] == 0, "[mesh full] failed frames")
     _mesh_ranks_equal("mesh full", gloo, "full")
@@ -3312,8 +3495,72 @@ def phase_mesh(card: str, frames, distorted, sync: dict, full: dict):
             "launches": {f"mesh {k}": v for k, v in
                          (("gloo kp", g0["kp"]["launches"]), ("gloo ext", g0["ext"]["launches"]),
                           ("gloo maps", g0["maps"]["launches"]),
-                          ("nccl maps", nccl[0]["maps"]["launches"]))},
+                          ("nccl maps", nccl[0]["maps"]["launches"]),
+                          *((f"nccl stream {name} (Python calls)", st["calls"])
+                            for name, st in streams.items()))},
+            "streams": streams,
             "pgo_ms": {"sharded": g0["pgo_ms"], "unsharded": g0["pgo_unsharded_ms"]}}
+
+
+def _check_nccl_streams(card, nccl, sref, stream_ms):
+    """Phase 11's checks of the NCCL group's captured streams
+    (`_mesh_graph_stream`, `_mesh_rig_stream`); returns each bench mode's
+    readings for the kernels line."""
+    r0 = nccl[0]
+    world = len(nccl)
+    smi = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True, timeout=60)
+    n_cards = len([ln for ln in smi.stdout.splitlines() if ln.startswith("GPU ")])
+    print(f"[mesh nccl] nvidia-smi -L lists {n_cards} card(s): the NCCL group runs "
+          f"{world} rank(s)" + (" on one card, so no collective crosses NVLink and "
+                                "ppermute's batch_isend_irecv (world 1: a clone) is not in "
+                                "its graphs" if world == 1 else " across cards"),
+          flush=True)
+    out = {}
+    for name, kw in MESH_STREAM_MODES:
+        tag = f"mesh nccl x{world} stream {name}"
+        st = r0["streams"][name]
+        _require(st["failed"] == 0 and st["eager"]["failed"] == 0,
+                 f"[{tag}] failed frames: {st['failed']} replayed, {st['eager']['failed']} "
+                 "eager")
+        _mesh_ranks_equal(tag, [r["streams"] for r in nccl], name)
+        wj = _mesh_check_poses(tag, st["poses"], sref[f"bench_{name}_poses"],
+                               f"JAX's mesh stream ({MESH_STREAM_REF_PATH.name})")
+        we = _mesh_check_poses(tag, st["poses"][:WINDOW + 1], st["eager"]["poses"],
+                               "the group's eager mesh stream over its first window")
+        ex = st["executions"]
+        _require(st["calls"] > 0 and all(n > 0 for n in ex.values()),
+                 f"[{tag}] k-NN wrapper calls {st['calls']}, device executions {ex}")
+        prof, n_tail = st["profile"], st["profiled"]
+        per_frame = {k: n / n_tail for k, n in prof["knn"].items()}
+        idle = 1.0 - prof["busy_ms"] / st["ms_frame"]
+        _, _, total = st["replay_vs_eager"]
+        want = _mesh_stream_executions(bench_config(16, 1800), kw)
+        print(f"[{tag}] captured graph, one replay per sweep: 0 failed of "
+              f"{len(st['poses'])}, {st['ms_frame']:.2f} ms/frame over frames "
+              f"{TIMED.start}-{TIMED.stop - 1} (single-device replay, phase 5: "
+              f"{stream_ms:.2f}); device busy {prof['busy_ms']:.2f} ms/frame over its "
+              f"frames {TIMED.stop}-{TIMED.stop + n_tail - 1} profiled on rank 0, so idle "
+              f"share {100 * idle:.1f}%, {prof['kernels']:.1f} device kernels/frame; k-NN "
+              f"executions per replayed frame {per_frame} (device counts; {want} expected); "
+              f"{st['calls']} k-NN wrapper calls (frame 0, warm-ups, capture) and {ex} device "
+              f"executions in frames 0-{TIMED.stop - 1} ({card})", flush=True)
+        print(f"[{tag}] replay == eager step from the stream's last state, bit for bit ({total} "
+              f"matches); poses {wj[0]:.3e} m / {wj[1]:.3e} deg from JAX's mesh stream, "
+              f"{we[0]:.3e} m / {we[1]:.3e} deg from the eager mesh stream over frames "
+              f"0-{WINDOW}; ranks bit-equal", flush=True)
+        out[name] = {"ms_frame": st["ms_frame"], "busy_ms": prof["busy_ms"], "idle": idle,
+                     "kernels": prof["kernels"], "knn_ms": prof["knn_ms"],
+                     "executions_per_frame": per_frame, "calls": st["calls"],
+                     "from_jax_m": wj[0], "from_eager_m": we[0]}
+    rig = r0["rig_stream"]
+    _require(rig["graph"]["failed"] == 0 and rig["eager"]["failed"] == 0,
+             "[mesh nccl rig stream] failed acquisitions")
+    wr = _mesh_check_poses("mesh nccl rig stream", rig["graph"]["poses"],
+                           rig["eager"]["poses"], "the eager rig stream")
+    print(f"[mesh nccl rig stream] {MESH_RIG_ACQ} acquisitions of add_frames_async with "
+          f"shard_maps, the rig's step graph captured on the mesh: 0 failed, {wr[0]:.3e} m "
+          f"from the eager rig stream ({card})", flush=True)
+    return out
 
 
 def _ref_pose(row):
@@ -3321,6 +3568,13 @@ def _ref_pose(row):
     from lidarslam_tpu_torch.core import se3
 
     return se3.pose_to_hmat(row[1:7])
+
+
+# the helpers whose time each phase's end line splits out (`SPENT`)
+TIMED_HELPERS = ("_profile", "_readings", "_path_call_case", "_stream_run_ms",
+                 "_replay_vs_eager", "_check_blob_model", "render_frames", "render_rig",
+                 "_single_run", "_kernel_case", "_float_stream", "_cli_process",
+                 "_mesh_call_cases")
 
 
 def main() -> int:
@@ -3341,7 +3595,16 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def done(phase):
-        print(f"[time] phase {phase} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(f"[time] phase {phase} done at {time.perf_counter() - t_start:.1f} s; in it: "
+              f"{_spent_line()}", flush=True)
+
+    from lidarslam_tpu_torch.ops import stream_graph
+    for name in TIMED_HELPERS:
+        globals()[name] = _timed(globals()[name])
+    step = stream_graph._Replayed._step
+    timed_step = _timed(step, "graph warm-ups and captures")
+    stream_graph._Replayed._step = lambda self, *a, **k: (
+        step if self.graph is not None else timed_step)(self, *a, **k)
 
     card = phase_env()
     phase_build()
@@ -3383,7 +3646,7 @@ def main() -> int:
     print(f"[time] phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
     done(10)
     t0 = time.perf_counter()
-    mesh = phase_mesh(card, frames, distorted, sync, full)
+    mesh = phase_mesh(card, frames, distorted, sync, full, stream["ms_frame"])
     print(f"[time] phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
     done(11)
     pf = ext["per_frame"]
@@ -3408,7 +3671,7 @@ def main() -> int:
         "shapes": ext["shapes"], "full_shapes": full["shapes"],
         "rig_shapes": rig["shapes"], "outdoor_shapes": front["shapes"],
         "mesh_shapes": mesh["shapes"], "mesh_ms_per_frame": mesh["ms_frame"],
-        "mesh_pgo_ms": mesh["pgo_ms"],
+        "mesh_pgo_ms": mesh["pgo_ms"], "mesh_nccl_streams": mesh["streams"],
         "launches_by_path": {"bench sync": sync["launches"],
                              "bench stream (Python calls)": stream["calls"],
                              "full sync": full["sync_launches"],

@@ -14,4 +14,6 @@ This package never imports jax.
 from lidarslam_tpu_torch.config import SlamConfig
 from lidarslam_tpu_torch.slam import Slam
 
-__all__ = ["Slam", "SlamConfig"]
+__version__ = "0.1.0"   # the JAX package's
+
+__all__ = ["Slam", "SlamConfig", "__version__"]

@@ -165,6 +165,51 @@ def _any_orthonormal6(v):
     return tuple(u[c] * inv for c in range(3))
 
 
+# -----------------------------------------------------------------------------
+# (..., 3, 3) API wrappers
+# -----------------------------------------------------------------------------
+
+def masked_mean_and_cov(pts, mask):
+    """Masked mean and normalized covariance.
+
+    Args:
+      pts: (..., N, 3) points.
+      mask: (..., N) boolean/float validity.
+
+    Returns:
+      mean (..., 3), cov (..., 3, 3), count (...,) — cov is zero where
+      count == 0.
+    """
+    mean, (c00, c01, c02, c11, c12, c22), count = masked_cov6(pts, mask)
+    row0 = torch.stack([c00, c01, c02], dim=-1)
+    row1 = torch.stack([c01, c11, c12], dim=-1)
+    row2 = torch.stack([c02, c12, c22], dim=-1)
+    return mean, torch.stack([row0, row1, row2], dim=-2), count
+
+
+def eigh_3x3(A):
+    """Batched symmetric 3x3 eigendecomposition (the closed form of `eigh6`).
+
+    Args:
+      A: (..., 3, 3) symmetric matrices.
+
+    Returns:
+      (eigvals (..., 3) ascending, eigvecs (..., 3, 3) with eigvecs[..., :, i]
+      the unit eigenvector of eigvals[..., i]).
+    """
+    c6 = (A[..., 0, 0],
+          0.5 * (A[..., 0, 1] + A[..., 1, 0]),
+          0.5 * (A[..., 0, 2] + A[..., 2, 0]),
+          A[..., 1, 1],
+          0.5 * (A[..., 1, 2] + A[..., 2, 1]),
+          A[..., 2, 2])
+    (l0, l1, l2), (v0, v1, v2) = eigh6(c6)
+    lam = torch.stack([l0, l1, l2], dim=-1)
+    V = torch.stack([torch.stack(v0, dim=-1), torch.stack(v1, dim=-1),
+                     torch.stack(v2, dim=-1)], dim=-1)
+    return lam, V
+
+
 def line_fit(pts, mask):
     """Batched PCA line fit: position (centroid), direction (largest eigvec).
 

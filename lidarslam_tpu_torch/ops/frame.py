@@ -34,6 +34,14 @@ class RangeImage(NamedTuple):
     time: torch.Tensor       # (R, C) float32 — offset [s] from the frame stamp
     valid: torch.Tensor      # (R, C) bool — packed left per row
 
+    @property
+    def n_rings(self):
+        return self.xyz.shape[0]
+
+    @property
+    def max_points(self):
+        return self.xyz.shape[1]
+
 
 class PackedRangeImage(NamedTuple):
     """Wire-compact sweep: int16 coordinates (4 mm), u8 intensity, u8 times
@@ -101,6 +109,14 @@ class FlatRangeImage:
         self.counts = counts
         self.shape = tuple(shape)
 
+    @property
+    def n_rings(self):
+        return self.shape[0]
+
+    @property
+    def max_points(self):
+        return self.shape[1]
+
     def unpack(self) -> RangeImage:
         R, C = self.shape
         P = self.xyz_q.shape[-2]
@@ -162,6 +178,14 @@ class ByteRangeImage:
     def __init__(self, buf: torch.Tensor, shape):
         self.buf = buf
         self.shape = tuple(shape)
+
+    @property
+    def n_rings(self):
+        return self.shape[0]
+
+    @property
+    def max_points(self):
+        return self.shape[1]
 
     def unpack(self) -> RangeImage:
         R, C = self.shape

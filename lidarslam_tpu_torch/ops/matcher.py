@@ -56,6 +56,13 @@ class Matches(NamedTuple):
         row2 = torch.stack([a02, a12, a22], dim=-1)
         return torch.stack([row0, row1, row2], dim=-2)
 
+    @classmethod
+    def from_dense(cls, A, **kw):
+        """Construct from a dense (Q, 3, 3) symmetric A (test convenience)."""
+        A = torch.as_tensor(A)
+        return cls(A6=torch.stack([A[:, 0, 0], A[:, 0, 1], A[:, 0, 2],
+                                   A[:, 1, 1], A[:, 1, 2], A[:, 2, 2]]), **kw)
+
 
 def _a6(a00, a01, a02, a11, a12, a22):
     return torch.stack([a00, a01, a02, a11, a12, a22], dim=0)

@@ -381,7 +381,7 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
             # of the roll and the insert are summed over the ranks
             m = maps[ti]
             m = m._replace(overflow=torch.zeros_like(m.overflow))
-            m = sharded_map.shard_roll(m, offset, map_cfgs[ti], mesh)
+            m = sharded_map.shard_roll(m, offset, map_cfgs[ti], mesh, sync_free=sync_free)
             m = sharded_map.shard_add_points(m, shifted, kp.intensity, kp.time, kp.valid,
                                              inp.stamp, map_cfgs[ti], False, mesh)
             return m._replace(overflow=maps[ti].overflow + mesh.psum(m.overflow))

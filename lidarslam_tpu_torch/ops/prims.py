@@ -1,14 +1,54 @@
-"""Index-selection primitives (PyTorch port of `lidarslam_tpu/ops/prims.py`).
+"""Scan and index-selection primitives (PyTorch port of
+`lidarslam_tpu/ops/prims.py`).
 
 The JAX module exists because `cumsum` and sized `nonzero` lower poorly on
-the TPU; here its `prefix_shift` is plain `torch.cumsum` at the call sites
-and `first_k_indices` is a cumsum plus a fixed-capacity scatter. Nothing
-uses `torch.nonzero`, which synchronizes with the host to size its output.
+the TPU. Here the selections are a `torch.cumsum` plus a fixed-capacity
+scatter (`first_k_indices`); nothing uses `torch.nonzero`, which
+synchronizes with the host to size its output. `prefix_shift` and
+`rev_segment_scan` keep the JAX package's log-shift (Hillis-Steele) order
+of additions, so their float results are bit-equal to JAX's: the map's
+CENTROID means depend on it (`voxel_map`).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def prefix_shift(x):
+    """Inclusive prefix sum along the last axis via log-shift adds."""
+    n = x.shape[-1]
+    s = 1
+    while s < n:
+        x = x + torch.cat([torch.zeros_like(x[..., :s]), x[..., :-s]], dim=-1)
+        s *= 2
+    return x
+
+
+def rev_segment_scan(seg, xs):
+    """Suffix combines within equal-`seg` runs (runs contiguous, e.g. ids
+    over sort-grouped keys): out[i] = combine(x[i..e)) where e is the end
+    of i's run, so a run's first element holds the run's aggregate.
+
+    Args:
+      seg: (N,) int run ids (only equality of neighbours is used).
+      xs: list of (tensor (N, ...), combine fn, pad value) triples.
+
+    Returns the list of scanned tensors."""
+    n = seg.shape[0]
+    res = [x for x, _, _ in xs]
+    s = 1
+    while s < n:
+        pad = torch.full((s,), -1, dtype=seg.dtype, device=seg.device)
+        same = torch.cat([seg[s:], pad]) == seg
+        new = []
+        for x, (_, op, fill) in zip(res, xs):
+            shifted = torch.cat([x[s:], torch.full_like(x[:s], fill)])
+            m = same.reshape(same.shape + (1,) * (x.dim() - 1))
+            new.append(torch.where(m, op(x, shifted), x))
+        res = new
+        s *= 2
+    return res
 
 
 def first_k_indices(mask, capacity: int):

@@ -34,8 +34,18 @@ of a frame then launch as one graph instead of one Python call each.
   copied out of the graph's static outputs into the window's own tensors.
 
 Nothing falls back to eager execution: a capture or replay failure raises.
-A mesh step (`parallel/sharded.py`) is never captured: `StreamGraph`
-refuses a mesh, and `Slam` streams on a mesh eagerly.
+
+On a mesh (`parallel/sharded.py`) the graph holds this rank's SPMD step
+(`process_frame_stream_spmd` / `process_keypoints_stream_spmd`) with its
+collectives, the counterpart of the JAX package's one sharded dispatch
+per window. Only NCCL collectives are device work that a graph can hold;
+gloo stages each one through host memory (ROADMAP Queue 3, D10), so
+`StreamGraph` refuses a gloo mesh and `Slam` streams there eagerly. Every
+rank warms up, captures and replays the same steps, so the ranks capture
+the same kernels and collectives in the same order; the eager warm-up
+steps create the NCCL communicator before the capture. The step reads
+nothing on the host on a mesh either: the slab-sharded maps' roll runs
+its migration hops as a loop of fixed length (`sharded_map.shard_roll`).
 The k-NN kernels (csrc/knn.cu) launch on the current stream, which is the
 capturing stream during capture, so the graph contains them, with the
 workspace the wrapper allocates from the graph's pool;
@@ -43,6 +53,8 @@ workspace the wrapper allocates from the graph's pool;
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -305,7 +317,9 @@ class _Replayed:
             return out
         if self.graph is None:
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            # thread-local: on an NCCL mesh the process group's watchdog
+            # thread queries its events while this thread captures
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._outputs = self._body()
             self.graph = graph
         self.graph.replay()
@@ -354,19 +368,30 @@ class StreamGraph(_Replayed):
     docstring."""
 
     def __init__(self, cfg: SlamConfig, map_cfgs: tuple, device, wire,
-                 blocks=(False, False), mesh=None):
-        if mesh is not None:
-            # gloo collectives run on the host and NCCL ones are not yet
-            # captured (ROADMAP): a mesh streams eagerly, step by step
-            raise ValueError("StreamGraph does not capture a mesh step: its collectives "
-                             "are driven from the host; run the mesh stream eagerly")
+                 blocks=(False, False), mesh=None, shard_maps: bool = False,
+                 shard_extraction: bool = False):
+        rig = isinstance(wire, KeypointRecord)
+        if mesh is None:
+            step = pipeline.process_keypoints_stream if rig else pipeline.process_frame_stream
+        elif mesh.backend != "nccl":
+            raise ValueError(f"StreamGraph captures a mesh step only on NCCL: {mesh.backend} "
+                             "stages every collective through host memory (ROADMAP Queue "
+                             "3, D10); run that mesh stream eagerly")
+        else:
+            from lidarslam_tpu_torch.parallel import sharded
+
+            kw = {"mesh": mesh, "shard_maps": shard_maps}
+            if not rig:
+                kw["shard_extraction"] = shard_extraction
+            step = functools.partial(sharded.process_keypoints_stream_spmd if rig
+                                     else sharded.process_frame_stream_spmd, **kw)
         super().__init__(device)
         self.cfg = cfg
         self.blocks = tuple(blocks)   # per BLOCK_KINDS: the graph holds that block
         self.map_cfgs = map_cfgs
         self.wire = wire
-        self._step_fn = pipeline.process_keypoints_stream \
-            if isinstance(wire, KeypointRecord) else pipeline.process_frame_stream
+        self.mesh = mesh
+        self._step_fn = step
         self.record = torch.zeros(wire.nbytes, dtype=torch.uint8, device=self.device)
         self.az = torch.zeros((), dtype=torch.float32, device=self.device)
         self.state = None

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from lidarslam_tpu_torch.config import MapConfig, SamplingMode
-from lidarslam_tpu_torch.ops import cuda_knn
+from lidarslam_tpu_torch.ops import cuda_knn, prims
 
 _BIGKEY = 2**31 - 1
 
@@ -151,16 +151,7 @@ def rev_segment_scan(seg, xs):
     CENTROID means are then bit-equal to JAX's, which neither a cumsum
     difference (it cancels at map coordinates) nor `index_add_` (atomics
     on CUDA, an order that varies from run to run) would give."""
-    n = seg.shape[0]
-    out = list(xs)
-    s = 1
-    while s < n:
-        pad = torch.full((s,), -1, dtype=seg.dtype, device=seg.device)
-        same = torch.cat([seg[s:], pad]) == seg
-        out = [torch.where(same, x + torch.cat([x[s:], torch.zeros_like(x[:s])]), x)
-               for x in out]
-        s *= 2
-    return out
+    return prims.rev_segment_scan(seg, [(x, torch.add, 0) for x in xs])
 
 
 def _reduce_batch(new_xyz, new_intensity, new_valid, cfg: MapConfig):

@@ -26,7 +26,9 @@ Backends: NCCL on the card (the default of `launch`), gloo where the
 caller asks for it (CPU ranks, or ranks that share one card, which NCCL
 refuses). gloo's rule for CUDA tensors: each collective stages them
 through pinned host memory inside the method, and the result comes back
-to the tensor's device. Under NCCL nothing is staged.
+to the tensor's device. Under NCCL nothing is staged and every collective
+is device work on the current stream, so a CUDA graph captures it: the
+mesh stream replays one graph per sweep there (`ops/stream_graph.py`).
 """
 
 from __future__ import annotations

@@ -63,11 +63,13 @@ so every rank holds the same poses, logs and (replicated) maps.
 `shard_extraction` splits extraction over rings; `shard_maps` keeps in
 `self.maps` this rank's slab of each map (`parallel/sharded_map.py`). Every
 path runs on a mesh: `add_frame(s)`, `add_frame(s)_async` + `flush`
-(eagerly: a mesh step's collectives are driven from the host, so no CUDA
-graph is captured; ROADMAP Queue 3, D9) and the PGO, whose segment-Schur
-solve shards over the ranks. Under `shard_maps` the methods that read the
-maps gather the slabs, so every rank must call them (collectives), and
-those that write files write them on rank 0 only.
+and the PGO, whose segment-Schur solve shards over the ranks. On an NCCL
+mesh the stream replays the same CUDA graphs as on one card, each holding
+the rank's SPMD step with its collectives; a gloo mesh streams eagerly,
+since gloo stages every collective through host memory (ROADMAP Queue 3,
+D10). Under `shard_maps` the methods that read the maps gather the slabs,
+so every rank must call them (collectives), and those that write files
+write them on rank 0 only.
 """
 
 from __future__ import annotations
@@ -643,8 +645,7 @@ class Slam:
             state = state._replace(map_update=torch.full(
                 (), self.mapping_mode != MappingMode.NONE, dtype=torch.bool,
                 device=self.device))
-        # a mesh step runs eagerly: its collectives are driven from the host
-        if self.device.type == "cuda" and self.mesh is None:
+        if self._stream_captured():
             if self._graph is None:
                 ecfg = cfg.extractor
                 cap = (cfg.wire_capacity if cfg.flat_wire else 0) \
@@ -652,12 +653,25 @@ class Slam:
                 wire = stream_graph.WireRecord(ecfg.n_rings, ecfg.max_ring_points, cap) \
                     if cfg.compress_upload \
                     else stream_graph.FloatRecord(ecfg.n_rings, ecfg.max_ring_points)
-                self._graph = stream_graph.StreamGraph(
-                    cfg, self._map_cfgs_tuple, self.device, wire,
-                    blocks=(self.wheel_odom.weight > 1e-6, self.imu.weight > 1e-6))
+                self._graph = self._new_graph(
+                    wire, (self.wheel_odom.weight > 1e-6, self.imu.weight > 1e-6))
             self._graph.seed(state, self.azimuthal_resolution)
             state = self._graph.state
         self._stream_state = state
+
+    def _stream_captured(self) -> bool:
+        """Whether the stream replays CUDA graphs: on a card, alone or on an
+        NCCL mesh. A gloo mesh streams eagerly: gloo stages every collective
+        through host memory (ROADMAP Queue 3, D10)."""
+        return self.device.type == "cuda" and (self.mesh is None
+                                                or self.mesh.backend == "nccl")
+
+    def _new_graph(self, wire, blocks):
+        """A StreamGraph of this Slam's step on `wire` (on a mesh its SPMD
+        step) holding the sensor `blocks`."""
+        return stream_graph.StreamGraph(
+            self.cfg, self._map_cfgs_tuple, self.device, wire, blocks=blocks, mesh=self.mesh,
+            shard_maps=self.shard_maps, shard_extraction=self.shard_extraction)
 
     def _graph_with_blocks(self, extras):
         """Make the graph hold a block of each kind in `extras`: a graph
@@ -669,8 +683,7 @@ class Slam:
                      for have, kind in zip(g.blocks, stream_graph.BLOCK_KINDS))
         if need == g.blocks:
             return
-        self._graph = stream_graph.StreamGraph(self.cfg, self._map_cfgs_tuple, self.device,
-                                               g.wire, blocks=need)
+        self._graph = self._new_graph(g.wire, need)
         self._graph.seed(g.state, self.azimuthal_resolution)
         self._stream_state = self._graph.state
 
@@ -682,9 +695,7 @@ class Slam:
         g = self._graph
         if self._rig_graph is None or self._rig_graph.state is not g.state:
             caps = [self.cfg.extractor.kp_capacity(i) for i in range(3)]
-            self._rig_graph = stream_graph.StreamGraph(
-                self.cfg, self._map_cfgs_tuple, self.device,
-                stream_graph.KeypointRecord(caps), blocks=g.blocks)
+            self._rig_graph = self._new_graph(stream_graph.KeypointRecord(caps), g.blocks)
             self._rig_graph.share(g)
         return self._rig_graph
 

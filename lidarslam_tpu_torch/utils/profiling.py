@@ -49,11 +49,13 @@ def _device_events(source):
         return
     import torch
 
-    for evt in source.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(evt, "self_device_time_total", None)
-        yield evt.key, float(evt.self_cuda_time_total if t is None else t), evt.count
+    # the profiler's raw records: `key_averages()` would first build a
+    # FunctionEvent tree of every record in Python, ~0.2 ms each (tens of
+    # seconds for a window of stream frames of ~40k kernels each)
+    cuda = torch.autograd.DeviceType.CUDA
+    for evt in source.profiler.kineto_results.events():
+        if evt.device_type() == cuda and not evt.is_user_annotation():
+            yield evt.name(), (evt.end_ns() - evt.start_ns()) / 1000.0, 1
 
 
 def device_busy_ms(source) -> float:

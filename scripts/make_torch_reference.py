@@ -2,7 +2,7 @@
 """Write the JAX package's VLP-16 trajectories for the PyTorch port.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_reference.py \
-        [--which bench|full|ext|float|rig|pgo|cli|mesh|all]
+        [--which bench|full|ext|float|rig|pgo|cli|mesh|mesh_stream|all]
 
 Runs the JAX package's `Slam` on the CPU over the first `chip_smoke.N_FRAMES`
 (30) sweeps of the bench sequence (weaving street trajectory), through
@@ -66,7 +66,12 @@ Runs the JAX package's `Slam` on the CPU over the first `chip_smoke.N_FRAMES`
   bench drive keypoint-sharded (`bench_kp_*`), with `shard_extraction`
   (`bench_ext_*`) and with `shard_maps` (`bench_maps_*`), and the full
   drive with `shard_maps` (`full_maps_*`) -> `vlp16_mesh_ref.npz`, each
-  run's `_poses`, `_n_matches`, `_failure` and `_overlap`, and `stamps`.
+  run's `_poses`, `_n_matches`, `_failure` and `_overlap`, and `stamps`;
+  then the bench drive through `add_frame_async` + `flush` on the same mesh
+  (`stream_window=8`), keypoint-sharded (`bench_kp_*`), with
+  `shard_extraction` (`bench_ext_*`) and with `shard_maps`
+  (`bench_maps_*`) -> `vlp16_mesh_stream_ref.npz`, with the same keys and
+  `mesh_devices`. `mesh_stream` (~3.5 min) writes only this second file.
 
 Each holds per frame the poses (float64 4x4), `n_matches`, `failure`,
 `overlap`, `comply_motion_limits`, `stamps` and, in the files written
@@ -339,15 +344,27 @@ MESH_RUNS = (("bench_kp", "bench", {}), ("bench_ext", "bench", {"shard_extractio
 MESH_DEVICES = 2
 
 
-def _mesh(Slam, cfgs, drives, path):
-    """`MESH_RUNS` on a `MESH_DEVICES`-device CPU mesh, sync path."""
+# the mesh stream references' runs: (key, Slam flags), on the bench drive
+MESH_STREAM_RUNS = (("bench_kp", {}), ("bench_ext", {"shard_extraction": True}),
+                    ("bench_maps", {"shard_maps": True}))
+
+
+def _mesh(Slam, cfgs, drives, path, stream=False):
+    """`MESH_RUNS` on a `MESH_DEVICES`-device CPU mesh, sync path; with
+    `stream`, `MESH_STREAM_RUNS` through `add_frame_async` + one `flush`."""
     from lidarslam_tpu.parallel import sharded
 
     mesh = sharded.make_mesh(MESH_DEVICES)
     arrs = {}
-    for key, drive, kw in MESH_RUNS:
+    runs = tuple((key, "bench", kw) for key, kw in MESH_STREAM_RUNS) if stream else MESH_RUNS
+    for key, drive, kw in runs:
         slam = Slam(cfgs[drive], mesh=mesh, **kw)
-        results = [slam.add_frame(f) for f in drives[drive]]
+        if stream:
+            for f in drives[drive]:
+                slam.add_frame_async(f)
+            results = slam.flush()
+        else:
+            results = [slam.add_frame(f) for f in drives[drive]]
         print(f"{key}: n_matches " + " ".join(str(r["n_matches"]) for r in results),
               file=sys.stderr)
         arrs[f"{key}_poses"] = np.asarray([r["pose"] for r in results], np.float64)
@@ -363,10 +380,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=str(ROOT / "lidarslam_tpu_torch" / "data"))
     ap.add_argument("--which", choices=("bench", "full", "ext", "float", "rig", "pgo", "cli",
-                                        "mesh", "all"), default="all")
+                                        "mesh", "mesh_stream", "all"), default="all")
     args = ap.parse_args()
 
-    if args.which in ("mesh", "all") and \
+    if args.which in ("mesh", "mesh_stream", "all") and \
             "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_"
                                    f"platform_device_count={MESH_DEVICES}").strip()
@@ -425,6 +442,10 @@ def main():
         native.available = lambda: False
         _mesh(Slam, {"bench": cfg, "full": full_jax_config(cfg)},
               {"bench": frames(False), "full": frames(True)}, out / "vlp16_mesh_ref.npz")
+    if args.which in ("mesh", "mesh_stream", "all"):
+        native.available = lambda: False
+        _mesh(Slam, {"bench": cfg}, {"bench": frames(False)},
+              out / "vlp16_mesh_stream_ref.npz", stream=True)
     print(f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
 

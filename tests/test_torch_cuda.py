@@ -745,3 +745,59 @@ def test_cuda_mesh_nccl(cuda):
     """NCCL at the card count (capped at 4): world 1 on a one-card
     machine, whose collectives still go through NCCL."""
     _mesh_against_single(cuda, min(torch.cuda.device_count(), 4), "nccl", ("maps",))
+
+
+MESH_STREAM_MODES = ("kp", "ext", "maps")
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_nccl_stream_captured(cuda):
+    """The NCCL mesh stream (world 1 on a one-card machine) replays a
+    captured graph per sweep, keypoint-sharded, with `shard_extraction` and
+    with `shard_maps`, and ends within 1e-6 m of the same stream run
+    eagerly; a gloo mesh on the card streams eagerly."""
+    import torch_mesh_ranks as R
+    from lidarslam_tpu_torch.parallel.launch import launch
+
+    world = min(torch.cuda.device_count(), 4)
+    ranks = launch(R.captured_and_eager_streams, world, backend="nccl", timeout_s=600,
+                   args=(MESH_STREAM_MODES, 12))
+    for mode in MESH_STREAM_MODES:
+        for res in ranks:
+            graph, eager = res[mode][True], res[mode][False]
+            assert graph["graph"] and not eager["graph"], mode
+            assert not any(graph["failed"]) and not any(eager["failed"]), mode
+            assert R.pose_divergence(graph["poses"], eager["poses"])[0] < 1e-6, mode
+            np.testing.assert_array_equal(graph["poses"], ranks[0][mode][True]["poses"])
+    gloo = launch(R.captured_and_eager_streams, 2, backend="gloo", device="cuda:0",
+                  timeout_s=600, args=(("kp",), 4))
+    assert not any(r["kp"][True]["graph"] for r in gloo)
+
+
+@pytest.mark.cuda
+def test_cuda_profile_readings_match_key_averages(cuda):
+    """`utils/profiling` reads a torch.profiler profile's raw records: each
+    device kernel and copy with the executions and device time torch's own
+    `key_averages()` gives it, and their sum as device busy."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidarslam_tpu_torch.utils import profiling
+
+    x = torch.randn(1 << 20, device=cuda)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            (x * 2).sum().cpu()
+            x.add_(1.0)
+        torch.cuda.synchronize()
+    dur, cnt, _ = profiling.op_totals(prof)
+    want_ms, want_n = collections.Counter(), collections.Counter()
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            want_ms[evt.key] += evt.self_device_time_total / 1000.0
+            want_n[evt.key] += evt.count
+    assert cnt == want_n and len(cnt) >= 3
+    for name, ms in want_ms.items():
+        assert dur[name] == pytest.approx(ms, rel=1e-6, abs=1e-6), name
+    assert profiling.device_busy_ms(prof) == pytest.approx(sum(want_ms.values()), rel=1e-6)

@@ -213,11 +213,15 @@ def test_slam_shard_flags_need_a_mesh():
 
 
 def test_stream_graph_refuses_a_mesh():
+    """A CUDA graph holds a mesh step only on NCCL: gloo stages every
+    collective through host memory (D10), so a gloo mesh is refused."""
+    from types import SimpleNamespace
+
     from lidarslam_tpu_torch.ops import stream_graph
 
     cfg = ranks_mod.small_config()
-    with pytest.raises(ValueError, match="does not capture a mesh step"):
-        stream_graph.StreamGraph(cfg, (), "cpu", None, mesh=object())
+    with pytest.raises(ValueError, match="only on NCCL: gloo stages(.|\n)*D10"):
+        stream_graph.StreamGraph(cfg, (), "cpu", None, mesh=SimpleNamespace(backend="gloo"))
 
 
 def test_launch_raises_when_a_rank_fails():

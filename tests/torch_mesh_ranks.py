@@ -19,7 +19,7 @@ from lidarslam_tpu_torch.config import (ExtractorConfig, Keypoint, MapConfig,
                                         MatchingConfig, SlamConfig, SolverConfig)
 from lidarslam_tpu_torch.core import se3
 from lidarslam_tpu_torch.io import synthetic
-from lidarslam_tpu_torch.ops import icp, voxel_map
+from lidarslam_tpu_torch.ops import icp, pipeline, voxel_map
 from lidarslam_tpu_torch.parallel import sharded, sharded_map
 from lidarslam_tpu_torch.parallel.launch import launch
 
@@ -335,11 +335,16 @@ def sharded_map_checks(mesh, jax_npz):
     out["knn"] = {"d2": d2.numpy(), "nbr": nbr.numpy(), "ring": ring.numpy()}
 
     roll_map = _insert(mesh, empty, ((2500, 4), (1000, 5)))
-    out["roll"], out["owns"] = [], [_owns(mesh, roll_map)]
+    out["roll"], out["owns"], out["roll_sync_free"] = [], [_owns(mesh, roll_map)], []
     for offset, hops in ROLL_CASES:
         r = sharded_map.roll_sharded(mesh, roll_map, offset, MAP_CFG, max_hops=hops)
         out["roll"].append(_global(mesh, r))
         out["owns"].append(_owns(mesh, r))
+        # the streaming step's form of the adaptive roll: hops of fixed count
+        out["roll_sync_free"].append(None if hops is not None else _global(
+            mesh, sharded_map._with_global_overflow(sharded_map.shard_roll, mesh)(
+                roll_map, torch.as_tensor(offset, dtype=torch.int32), MAP_CFG, mesh,
+                sync_free=True)))
 
     few = sharded_map.roll_sharded(mesh, _insert(mesh, empty, ((2000, 6),)), FEW_HOPS_OFFSET,
                                    MAP_CFG, max_hops=1)
@@ -481,3 +486,76 @@ def tight_and_rig(mesh, n_acq):
     """tests/test_torch_mesh_tight.py's ranks: dryrun_multichip's runs, and
     the split rig's `n_acq` acquisitions in `shard_maps` mode."""
     return {"tight": tight_window(mesh), "rig": rig_run(n_acq, mesh=mesh, shard_maps=True)}
+
+
+
+HOST_READS = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist", "numpy",
+              "cpu")
+
+
+def _step_reads_on_host(slam, frame):
+    """One mesh streaming step of `slam` (the SPMD step the mesh graph
+    captures) on `frame`, with every Python-level host read of a tensor made
+    to raise: (None or the error's text, the step's total matches)."""
+    cfg = slam.cfg
+    ri = slam._build_ri(frame)
+    stamp = torch.tensor(frame["stamp"], dtype=torch.float32)
+    az = torch.tensor(slam.azimuthal_resolution, dtype=torch.float32)
+    saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
+
+    def refuse(*a, **k):
+        raise AssertionError("host read of a tensor inside the mesh streaming step")
+    try:
+        for name in HOST_READS:
+            setattr(torch.Tensor, name, refuse)
+        _, packed, _ = slam._step("process_frame_stream")(
+            ri, slam._stream_state, stamp, az, cfg, slam._map_cfgs_tuple, False)
+    except AssertionError as e:
+        return str(e), None
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+    return None, int(pipeline.unpack_scalars(packed.numpy()[:pipeline.PACKED_LEN])["total"])
+
+
+def mesh_stream(mesh, mode, n_frames):
+    """`n_frames` golden sweeps through `add_frame_async` + `flush` on the
+    mesh in `mode`: the poses and failures; then a second stream's step
+    after its first 3 sweeps with host reads refused (`_step_reads_on_host`)."""
+    cfg = unsaturated_config() if mode == "ext" else small_config()
+    frames = golden(n_frames)
+    slam = Slam(cfg, mesh=mesh, **MODES[mode])
+    for f in frames:
+        slam.add_frame_async(f)
+    outs = slam.flush()
+    probe = Slam(cfg, mesh=mesh, **MODES[mode])
+    for f in frames[:3]:
+        probe.add_frame_async(f)
+    probe._drain_window()
+    err, total = _step_reads_on_host(probe, frames[3])
+    return {"poses": pose_stack(outs), "failed": [bool(o["failure"]) for o in outs],
+            "host_read": err, "total": total}
+
+
+def captured_and_eager_streams(mesh, modes, n_frames):
+    """Per mode: `n_frames` golden sweeps through `add_frame_async` + `flush`
+    on the mesh with the stream captured (on a card under NCCL: one graph
+    replay per sweep) and with capture off; the poses, failures, and
+    whether the first stream replayed a captured graph."""
+    frames = golden(n_frames)
+    out = {}
+    for mode in modes:
+        cfg = unsaturated_config() if mode == "ext" else small_config()
+        runs = {}
+        for captured in (True, False):
+            slam = Slam(cfg, mesh=mesh, **MODES[mode])
+            if not captured:
+                slam._stream_captured = lambda: False
+            for f in frames:
+                slam.add_frame_async(f)
+            outs = slam.flush()
+            runs[captured] = {"poses": pose_stack(outs),
+                              "failed": [bool(o["failure"]) for o in outs],
+                              "graph": slam._graph is not None and slam._graph.graph is not None}
+        out[mode] = runs
+    return out
