@@ -35,6 +35,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from lidarslam_tpu_torch.utils.timer import span
+
 QUANT = 0.004  # [m] coordinate quantum of the COMPRESSED backend
 
 
@@ -80,7 +82,8 @@ def store(kp, mode, directory: str = "", tag: str = ""):
 
     if mode == LoggingStorage.DEVICE:
         return kp if isinstance(kp, KeypointsView) else type(kp)(*(a.clone() for a in kp))
-    h = _to_host(kp)
+    with span("slam.sync"):   # a host tier reads the sweep's keypoints back
+        h = _to_host(kp)
     if mode == LoggingStorage.HOST:
         return h
     if mode == LoggingStorage.COMPRESSED:

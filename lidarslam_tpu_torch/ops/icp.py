@@ -36,6 +36,7 @@ from lidarslam_tpu_torch.config import (Keypoint, MatchingConfig, SolverConfig,
                                         UndistortionMode)
 from lidarslam_tpu_torch.core import se3
 from lidarslam_tpu_torch.ops import matcher, solver, undistortion, voxel_map
+from lidarslam_tpu_torch.utils.timer import span
 
 
 class ICPInputs(NamedTuple):
@@ -127,60 +128,66 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
     knn_cache = None
 
     for it in range(icp_iters):
-        sat = torch.full((), saturation_schedule(it, icp_iters, params),
-                         dtype=torch.float32, device=dev)
-        xs = list(inputs.kp_xyz)
-        if undistort:
-            # REFINED: the JAX loop's where(it > 0, make_warp(pose), prior)
-            warp = make_warp(pose) if undistort_mode == UndistortionMode.REFINED \
-                and it > 0 else prior_warp
-            for t in types:
-                xs[int(t)] = undistortion.warp_points(xs[int(t)], inputs.kp_time[int(t)],
-                                                      warp)
-        if reuse and it == 0:
-            knn_cache = []
-            for t in types:
-                ti = int(t)
-                world = se3.japply_pose(pose, xs[ti])
-                need_rings = t == Keypoint.EDGE and params.single_edge_per_ring
-                _, nbr, rings, found = matcher.knn_query(
-                    inputs.index[ti], world, k_of[t], prune_radii[ti],
-                    inputs.kp_valid[ti], prepared[ti], need_rings=need_rings,
-                    map_mesh=map_mesh)
-                knn_cache.append((nbr, rings, found))
+        with span("slam.icp.round"):
+            sat = torch.full((), saturation_schedule(it, icp_iters, params),
+                             dtype=torch.float32, device=dev)
+            xs = list(inputs.kp_xyz)
+            if undistort:
+                # REFINED: the JAX loop's where(it > 0, make_warp(pose), prior)
+                warp = make_warp(pose) if undistort_mode == UndistortionMode.REFINED \
+                    and it > 0 else prior_warp
+                for t in types:
+                    xs[int(t)] = undistortion.warp_points(xs[int(t)], inputs.kp_time[int(t)],
+                                                          warp)
+            with span("slam.icp.match"):
+                if reuse and it == 0:
+                    knn_cache = []
+                    for t in types:
+                        ti = int(t)
+                        world = se3.japply_pose(pose, xs[ti])
+                        need_rings = t == Keypoint.EDGE and params.single_edge_per_ring
+                        _, nbr, rings, found = matcher.knn_query(
+                            inputs.index[ti], world, k_of[t], prune_radii[ti],
+                            inputs.kp_valid[ti], prepared[ti], need_rings=need_rings,
+                            map_mesh=map_mesh)
+                        knn_cache.append((nbr, rings, found))
 
-        blocks = [_MATCH_FNS[t](xs[int(t)], inputs.kp_valid[int(t)],
-                                inputs.index[int(t)], pose, params,
-                                prepared=prepared[int(t)],
-                                knn=knn_cache[i] if reuse else None,
-                                prune_radius=prune_radii[int(t)], map_mesh=map_mesh)
-                  for i, t in enumerate(types)]
+                blocks = [_MATCH_FNS[t](xs[int(t)], inputs.kp_valid[int(t)],
+                                        inputs.index[int(t)], pose, params,
+                                        prepared=prepared[int(t)],
+                                        knn=knn_cache[i] if reuse else None,
+                                        prune_radius=prune_radii[int(t)], map_mesh=map_mesh)
+                          for i, t in enumerate(types)]
 
-        it_counts = torch.stack([b.n_matches.to(torch.int32) for b in blocks])
-        if mesh is not None:
-            it_counts = mesh.psum(it_counts)
-        it_total = torch.sum(it_counts, dtype=torch.int32)
-        enough = it_total >= min_matches
+            it_counts = torch.stack([b.n_matches.to(torch.int32) for b in blocks])
+            if mesh is not None:
+                it_counts = mesh.psum(it_counts)
+            it_total = torch.sum(it_counts, dtype=torch.int32)
+            enough = it_total >= min_matches
 
-        res = solver.robust_lm(blocks, pose, sat, solver_cfg, lm_max_iter,
-                               extras=extras, mesh=mesh)
+            with span("slam.icp.solve"):
+                res = solver.robust_lm(blocks, pose, sat, solver_cfg, lm_max_iter,
+                                       extras=extras, mesh=mesh)
 
-        step_ok = active & enough
-        pose = torch.where(step_ok, res.pose, pose)
-        H = torch.where(step_ok, res.H, H)
-        total = torch.where(active, it_total, total)
-        full_counts = torch.zeros((3,), dtype=torch.int32, device=dev)
-        for i, t in enumerate(types):
-            full_counts[int(t)] = it_counts[i]
-        counts = torch.where(active, full_counts, counts)
-        statuses = tuple(torch.where(active, b.status, s)
-                         for b, s in zip(blocks, statuses))
-        weights = tuple(torch.where(active, b.weight, w)
-                        for b, w in zip(blocks, weights))
-        failed = failed | (active & ~enough)
-        active = step_ok & (res.n_success != 1)
-        if not gated and not bool(active):   # host read: the early exit
-            break
+            step_ok = active & enough
+            pose = torch.where(step_ok, res.pose, pose)
+            H = torch.where(step_ok, res.H, H)
+            total = torch.where(active, it_total, total)
+            full_counts = torch.zeros((3,), dtype=torch.int32, device=dev)
+            for i, t in enumerate(types):
+                full_counts[int(t)] = it_counts[i]
+            counts = torch.where(active, full_counts, counts)
+            statuses = tuple(torch.where(active, b.status, s)
+                             for b, s in zip(blocks, statuses))
+            weights = tuple(torch.where(active, b.weight, w)
+                            for b, w in zip(blocks, weights))
+            failed = failed | (active & ~enough)
+            active = step_ok & (res.n_success != 1)
+            if not gated:
+                with span("slam.sync"):   # host read: the early exit
+                    go_on = bool(active)
+                if not go_on:
+                    break
 
     final_warp = None
     if undistort:

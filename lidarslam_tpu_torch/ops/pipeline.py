@@ -62,6 +62,7 @@ from lidarslam_tpu_torch.ops import extractor, icp, matcher, solver, undistortio
 from lidarslam_tpu_torch.ops.frame import (FlatRangeImage, Keypoints, ensure_range_image,
                                            flatten_keypoints, merge_keypoints)
 from lidarslam_tpu_torch.parallel import sharded_map
+from lidarslam_tpu_torch.utils.timer import span
 
 
 class SubmapCache(NamedTuple):
@@ -178,10 +179,11 @@ def process_frame(ri, maps: tuple, prev_keypoints: tuple, inp: FrameInputs,
 
 
 def _extract(ri, az_res, cfg: SlamConfig, mesh, shard_extraction: bool):
-    if shard_extraction and mesh is not None:
-        return extract_sharded(ri, az_res, cfg, mesh)
-    ext = extractor.extract_keypoints(ri, az_res, cfg.extractor)
-    return ext.edges, ext.planes, ext.blobs
+    with span("slam.extract"):
+        if shard_extraction and mesh is not None:
+            return extract_sharded(ri, az_res, cfg, mesh)
+        ext = extractor.extract_keypoints(ri, az_res, cfg.extractor)
+        return ext.edges, ext.planes, ext.blobs
 
 
 def extract_sharded(ri, az_res, cfg: SlamConfig, mesh):
@@ -249,7 +251,8 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
     if cfg.ego_motion_mode in (EgoMotionMode.REGISTRATION,
                                EgoMotionMode.MOTION_EXTRAPOLATION_AND_REGISTRATION) \
             and prev_keypoints is not None and not first_frame:
-        trel = _ego_registration(kps, prev_keypoints, trel, cfg, sync_free, mesh)
+        with span("slam.ego"):
+            trel = _ego_registration(kps, prev_keypoints, trel, cfg, sync_free, mesh)
 
     loc_prior = se3.jcompose_pose(inp.prev_pose, trel)
     new_cache = list(inp.submap_cache)
@@ -271,34 +274,35 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
         index = [None, None, None]
         prepared = [None, None, None]
         maps = list(maps)
-        for t in types:
-            ti = int(t)
-            mc = map_cfgs[ti]
-            if mc.decaying_threshold > 0:
-                maps[ti] = voxel_map.clear_old_points(maps[ti], inp.stamp, mc)
-            m, kp = maps[ti], kps[ti]
-            cache = inp.submap_cache[ti]
-            view = None
-            if cache is None or sync_free or inp.cache_stale:
-                world = se3.japply_pose(loc_prior, kp.xyz)
-                bbox_min, bbox_max = _bbox(world, kp.valid)
-                view = voxel_map.extract_submap_view(
-                    m, bbox_min, bbox_max, torch.div(kp.count, 2, rounding_mode="floor"), mc,
-                    mesh=map_mesh)
-                if cache is not None:
-                    fresh = SubmapCache(selected=view.valid,
-                                        index=voxel_map.prepare_knn_index(view))
-                    # sync-free: the JAX package's lax.cond on cache_stale,
-                    # computed every frame and selected
-                    new_cache[ti] = _select(inp.cache_stale, fresh, cache) \
-                        if sync_free else fresh
-            if new_cache[ti] is not None:
-                view = voxel_map.SubmapView(xyz=m.xyz, ring=None,
-                                            valid=new_cache[ti].selected)
-                prepared[ti] = new_cache[ti].index
-            else:   # per-frame submap (decay): one index for the ICP and the overlap
-                prepared[ti] = voxel_map.prepare_knn_index(view)
-            index[ti] = view
+        with span("slam.submap"):
+            for t in types:
+                ti = int(t)
+                mc = map_cfgs[ti]
+                if mc.decaying_threshold > 0:
+                    maps[ti] = voxel_map.clear_old_points(maps[ti], inp.stamp, mc)
+                m, kp = maps[ti], kps[ti]
+                cache = inp.submap_cache[ti]
+                view = None
+                if cache is None or sync_free or inp.cache_stale:
+                    world = se3.japply_pose(loc_prior, kp.xyz)
+                    bbox_min, bbox_max = _bbox(world, kp.valid)
+                    view = voxel_map.extract_submap_view(
+                        m, bbox_min, bbox_max, torch.div(kp.count, 2, rounding_mode="floor"),
+                        mc, mesh=map_mesh)
+                    if cache is not None:
+                        fresh = SubmapCache(selected=view.valid,
+                                            index=voxel_map.prepare_knn_index(view))
+                        # sync-free: the JAX package's lax.cond on cache_stale,
+                        # computed every frame and selected
+                        new_cache[ti] = _select(inp.cache_stale, fresh, cache) \
+                            if sync_free else fresh
+                if new_cache[ti] is not None:
+                    view = voxel_map.SubmapView(xyz=m.xyz, ring=None,
+                                                valid=new_cache[ti].selected)
+                    prepared[ti] = new_cache[ti].index
+                else:   # per-frame submap (decay): one index for the ICP and the overlap
+                    prepared[ti] = voxel_map.prepare_knn_index(view)
+                index[ti] = view
 
         undist_kwargs = {}
         if cfg.undistortion != UndistortionMode.NONE:
@@ -309,18 +313,19 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
                 time_range=_time_range(kps, types, dev),
                 max_extrapolation_ratio=cfg.max_extrapolation_ratio)
         sl = (lambda a: a) if mesh is None else mesh.shard_slice
-        res = icp.icp_register(
-            icp.ICPInputs(kp_xyz=tuple(sl(k.xyz) for k in kps),
-                          kp_valid=tuple(sl(k.valid) for k in kps), index=tuple(index),
-                          kp_time=tuple(sl(k.time) for k in kps)),
-            types=types, pose0=loc_prior, params=cfg.loc_matching,
-            solver_cfg=cfg.solver, icp_iters=cfg.localization_icp_max_iter,
-            lm_max_iter=cfg.localization_lm_max_iter,
-            min_matches=cfg.min_nb_matched_keypoints, prepared=tuple(prepared),
-            extras=inp.extras, gated=sync_free,
-            prune_radii=(None,) * 3 if shard_maps
-            else tuple(matcher.knn_radius(t, cfg.loc_matching) for t in Keypoint),
-            mesh=mesh, map_shard=shard_maps, **undist_kwargs)
+        with span("slam.icp"):
+            res = icp.icp_register(
+                icp.ICPInputs(kp_xyz=tuple(sl(k.xyz) for k in kps),
+                              kp_valid=tuple(sl(k.valid) for k in kps), index=tuple(index),
+                              kp_time=tuple(sl(k.time) for k in kps)),
+                types=types, pose0=loc_prior, params=cfg.loc_matching,
+                solver_cfg=cfg.solver, icp_iters=cfg.localization_icp_max_iter,
+                lm_max_iter=cfg.localization_lm_max_iter,
+                min_matches=cfg.min_nb_matched_keypoints, prepared=tuple(prepared),
+                extras=inp.extras, gated=sync_free,
+                prune_radii=(None,) * 3 if shard_maps
+                else tuple(matcher.knn_radius(t, cfg.loc_matching) for t in Keypoint),
+                mesh=mesh, map_shard=shard_maps, **undist_kwargs)
 
         failed = res.failed
         pose = torch.where(failed, inp.prev_pose, res.pose)  # rollback (Slam.cxx:1098-1107)
@@ -336,7 +341,8 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
         warp = res.warp
         trel = torch.where(failed, 0.0, _relative_pose(inp.prev_pose, pose))
         if cfg.confidence.overlap_sampling_ratio > 0 and ri is not None:
-            overlap = _overlap(ri, pose, index, cfg, map_cfgs, warp, prepared, map_mesh)
+            with span("slam.overlap"):
+                overlap = _overlap(ri, pose, index, cfg, map_cfgs, warp, prepared, map_mesh)
 
     # ---------------- keyframe gate ----------------
     kf_motion = _relative_pose(inp.kf_last_pose, pose)
@@ -395,8 +401,9 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
         # the JAX package's lax.cond on do_update: computed every frame and
         # selected, so a non-keyframe keeps exactly the old map tensors'
         # values (overflow included: the update adds the frame's drops once)
-        for t in types:
-            new_maps[int(t)] = _select(do_update, update(int(t)), maps[int(t)])
+        with span("slam.map_update"):
+            for t in types:
+                new_maps[int(t)] = _select(do_update, update(int(t)), maps[int(t)])
         packed = pack_scalars(pose, trel, failed, total, counts, cov, offset, do_update,
                               overlap, _overflow(new_maps, dev), kp_counts)
         cache_stale = torch.ones((), dtype=torch.bool, device=dev) if first_frame \
@@ -407,12 +414,17 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
         # map_overflow is the cumulative count before this frame's insert; a
         # keyframe re-reads it after the insert.
         packed = pack_scalars(pose, trel, failed, total, counts, cov, offset, do_update,
-                              overlap, _overflow(maps, dev), kp_counts).cpu().numpy()
+                              overlap, _overflow(maps, dev), kp_counts)
+        with span("slam.sync"):
+            packed = packed.cpu().numpy()
         updated = bool(packed[17] > 0.5)
         if updated:
-            for t in types:
-                new_maps[int(t)] = update(int(t))
-            packed[58:61] = _overflow(new_maps, dev).cpu().numpy()
+            with span("slam.map_update"):
+                for t in types:
+                    new_maps[int(t)] = update(int(t))
+                overflow = _overflow(new_maps, dev)
+                with span("slam.sync"):
+                    packed[58:61] = overflow.cpu().numpy()
         # a map update invalidates the submap selection; first_frame skips
         # matching, so its cache is never built
         cache_stale = True if first_frame else updated

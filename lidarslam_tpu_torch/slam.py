@@ -100,6 +100,21 @@ from lidarslam_tpu_torch.parallel import sharded, sharded_map
 from lidarslam_tpu_torch.sensors.constraints import (ImuManager, WheelOdometryManager,
                                                      on_device)
 from lidarslam_tpu_torch.utils import timer
+from lidarslam_tpu_torch.utils.timer import span
+
+
+def _root_span(name: str):
+    """Run the method in the span `name`: the root of one public call of
+    the per-sweep path, with the timers on at verbosity >= 3
+    (`utils/timer.py`)."""
+    def wrap(method):
+        @functools.wraps(method)
+        def call(self, *args, **kw):
+            timer.enable(self.cfg.verbosity >= 3)
+            with span(name):
+                return method(self, *args, **kw)
+        return call
+    return wrap
 
 
 def _shared_resolution(cfg: SlamConfig) -> float:
@@ -327,6 +342,7 @@ class Slam:
     # Main entry
     # ------------------------------------------------------------------
 
+    @_root_span("slam.add_frame")
     def add_frame(self, frame: dict, next_frame: dict = None) -> dict:
         """Process one sweep (Slam::AddFrames single-LiDAR path).
 
@@ -344,25 +360,23 @@ class Slam:
         if pre is not None and pre[0] == frame.get("stamp"):
             ri = pre[1]
         else:
-            ri = self._build_ri(frame)
+            with span("slam.ingest"):
+                ri = self._build_ri(frame)
         if not _valid_az(self.azimuthal_resolution):
-            self.azimuthal_resolution = float(
-                estimate_azimuthal_resolution(ensure_range_image(ri)))
+            with span("slam.sync"):
+                self.azimuthal_resolution = float(
+                    estimate_azimuthal_resolution(ensure_range_image(ri)))
 
         inp = self._make_inputs(stamp)
         first = not self._maps_populated
         maps_in = tuple(self.maps.get(Keypoint(i)) for i in range(3))
-        if cfg.verbosity >= 3:
-            timer.init("device step")
-        res = self._step("process_frame")(ri, maps_in, self._prev_keypoints(), inp, cfg,
-                                           self._map_cfgs_tuple, first)
+        with span("slam.step"):
+            res = self._step("process_frame")(ri, maps_in, self._prev_keypoints(), inp, cfg,
+                                               self._map_cfgs_tuple, first)
         if next_frame is not None and next_frame.get("xyz") is not None \
                 and len(next_frame["xyz"]) > 0:
-            self._prefetched = (next_frame["stamp"], self._build_ri(next_frame))
-        if cfg.verbosity >= 3:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            timer.stop_and_display("device step")
+            with span("slam.ingest"):
+                self._prefetched = (next_frame["stamp"], self._build_ri(next_frame))
         out = self._apply_result(res, stamp, t0)
         self.last_stamp = frame["stamp"]
         return out
@@ -455,6 +469,7 @@ class Slam:
     # Streaming (device-chained) mode: no host sync until flush
     # ------------------------------------------------------------------
 
+    @_root_span("slam.add_frame_async")
     def add_frame_async(self, frame: dict) -> int:
         """Enqueue one sweep in streaming mode; returns its frame index (-1
         when skipped).
@@ -484,25 +499,30 @@ class Slam:
         # the CPU, whose window step takes none; on CUDA the graph replays
         # each record on its own, its blocks in the record
         if windowed and (self._graph is not None or not extras):
-            self._window_buf.append((self._build_ri(frame, device=False), stamp, extras))
+            with span("slam.ingest"):
+                ri_host = self._build_ri(frame, device=False)
+            self._window_buf.append((ri_host, stamp, extras))
             if len(self._window_buf) >= self.cfg.stream_window:
                 self._dispatch_window()
         else:
             # any buffered partial window runs first, to keep frame order
             self._drain_window()
-            ri = self._build_ri(frame)
+            with span("slam.ingest"):
+                ri = self._build_ri(frame)
             if az_invalid:
-                self.azimuthal_resolution = float(
-                    estimate_azimuthal_resolution(ensure_range_image(ri)))
+                with span("slam.sync"):
+                    self.azimuthal_resolution = float(
+                        estimate_azimuthal_resolution(ensure_range_image(ri)))
             dev_extras = tuple(on_device(e, self.device) for e in extras)
-            if self._graph is not None:
-                self._graph.set_az(self.azimuthal_resolution)
-                packed, kps_flat = self._graph.eager_step(ri, stamp, first, dev_extras)
-            else:
-                self._stream_state, packed, kps_flat = self._step("process_frame_stream")(
-                    ri, self._stream_state, self._f32(stamp),
-                    self._f32(self.azimuthal_resolution), self.cfg,
-                    self._map_cfgs_tuple, first, dev_extras)
+            with span("slam.step"):
+                if self._graph is not None:
+                    self._graph.set_az(self.azimuthal_resolution)
+                    packed, kps_flat = self._graph.eager_step(ri, stamp, first, dev_extras)
+                else:
+                    self._stream_state, packed, kps_flat = self._step("process_frame_stream")(
+                        ri, self._stream_state, self._f32(stamp),
+                        self._f32(self.azimuthal_resolution), self.cfg,
+                        self._map_cfgs_tuple, first, dev_extras)
             self._stream_pending.append({"stamps": [stamp], "packed": packed,
                                          "kps_flat": kps_flat})
         self.last_stamp = frame["stamp"]
@@ -571,26 +591,27 @@ class Slam:
         """Step buffered sweeps in order: on CUDA one upload of their
         records (flat wire or float planes) and one graph replay each, on
         the CPU the eager window."""
-        cfg = self.cfg
-        stamps = [s for _, s, _ in buf]
-        if self._graph is not None:
-            with torch.cuda.device(self.device):
-                self._graph_with_blocks([e for _, _, ex in buf for e in ex])
-                wire = self._graph.wire
-                sweeps = [flatten_packed(r, wire.capacity) if isinstance(r, PackedRangeImage)
-                          else r for r, _, _ in buf]
-                records = wire.pack(sweeps, stamps, [ex for _, _, ex in buf])
-                packed, kps_flat = self._graph.run(records.to(self.device, non_blocking=True))
-        else:
-            ris = [r for r, _, _ in buf]
-            if cfg.flat_wire and isinstance(ris[0], PackedRangeImage):
-                ris = [flatten_packed(r, cfg.wire_capacity) for r in ris]
-            self._stream_state, packed, kps_flat = self._step("process_stream_window")(
-                stack_range_images(ris, self.device), self._stream_state,
-                torch.tensor(stamps, dtype=torch.float32, device=self.device),
-                self._f32(self.azimuthal_resolution), cfg, self._map_cfgs_tuple)
-        self._stream_pending.append({"stamps": stamps, "packed": packed,
-                                     "kps_flat": kps_flat})
+        with span("slam.dispatch"):
+            cfg = self.cfg
+            stamps = [s for _, s, _ in buf]
+            if self._graph is not None:
+                with torch.cuda.device(self.device):
+                    self._graph_with_blocks([e for _, _, ex in buf for e in ex])
+                    wire = self._graph.wire
+                    sweeps = [flatten_packed(r, wire.capacity) if isinstance(r, PackedRangeImage)
+                              else r for r, _, _ in buf]
+                    records = wire.pack(sweeps, stamps, [ex for _, _, ex in buf])
+                    packed, kps_flat = self._graph.run(records.to(self.device, non_blocking=True))
+            else:
+                ris = [r for r, _, _ in buf]
+                if cfg.flat_wire and isinstance(ris[0], PackedRangeImage):
+                    ris = [flatten_packed(r, cfg.wire_capacity) for r in ris]
+                self._stream_state, packed, kps_flat = self._step("process_stream_window")(
+                    stack_range_images(ris, self.device), self._stream_state,
+                    torch.tensor(stamps, dtype=torch.float32, device=self.device),
+                    self._f32(self.azimuthal_resolution), cfg, self._map_cfgs_tuple)
+            self._stream_pending.append({"stamps": stamps, "packed": packed,
+                                         "kps_flat": kps_flat})
 
     def _drain_window(self):
         """Run a buffered partial window sweep by sweep (on CUDA: graph
@@ -603,10 +624,11 @@ class Slam:
             self._run_window(buf)
             return
         for ri_host, stamp, _ in buf:
-            self._stream_state, packed, kps_flat = self._step("process_frame_stream")(
-                to_device_range_image(ri_host, self.device), self._stream_state,
-                self._f32(stamp), self._f32(self.azimuthal_resolution), self.cfg,
-                self._map_cfgs_tuple, False)
+            with span("slam.step"):
+                self._stream_state, packed, kps_flat = self._step("process_frame_stream")(
+                    to_device_range_image(ri_host, self.device), self._stream_state,
+                    self._f32(stamp), self._f32(self.azimuthal_resolution), self.cfg,
+                    self._map_cfgs_tuple, False)
             self._stream_pending.append({"stamps": [stamp], "packed": packed,
                                          "kps_flat": kps_flat})
 
@@ -630,15 +652,16 @@ class Slam:
             t_cur = self.log_trajectory[-1]["time"] if self.log_trajectory else 0.0
             t_prev = self.log_trajectory[-2]["time"] if len(self.log_trajectory) > 1 \
                 else t_cur
-            state = pipeline.seed_stream_state(
-                tuple(self.maps.get(Keypoint(i)) for i in range(3)),
-                se3.hmat_to_pose(rel).astype(np.float32),
-                se3.hmat_to_pose(prev_rel).astype(np.float32),
-                np.float32(t_cur), np.float32(t_prev),
-                se3.hmat_to_pose(kf_rel).astype(np.float32), self.kf_counter,
-                np.round(self.map_origin / res_m).astype(np.int32),
-                max(self.n_frames, 1), self.mapping_mode != MappingMode.NONE,
-                cfg, self._map_cfgs_tuple, self.device, self.mesh, self.shard_maps)
+            with span("slam.sync"):   # blocking copies of the host state
+                state = pipeline.seed_stream_state(
+                    tuple(self.maps.get(Keypoint(i)) for i in range(3)),
+                    se3.hmat_to_pose(rel).astype(np.float32),
+                    se3.hmat_to_pose(prev_rel).astype(np.float32),
+                    np.float32(t_cur), np.float32(t_prev),
+                    se3.hmat_to_pose(kf_rel).astype(np.float32), self.kf_counter,
+                    np.round(self.map_origin / res_m).astype(np.int32),
+                    max(self.n_frames, 1), self.mapping_mode != MappingMode.NONE,
+                    cfg, self._map_cfgs_tuple, self.device, self.mesh, self.shard_maps)
         else:
             state = pipeline.init_stream_state(cfg, self._map_cfgs_tuple, self.device,
                                                self.mesh, self.shard_maps)
@@ -716,6 +739,7 @@ class Slam:
                 extras.append(r)
         return extras
 
+    @_root_span("slam.flush")
     def flush(self) -> list:
         """Bring the streamed results to the host (one transfer) and into
         the logs; returns the per-frame summary dicts of the flushed frames.
@@ -726,8 +750,9 @@ class Slam:
         cfg = self.cfg
         n_packed = pipeline.PACKED_LEN + 3
         res_m = voxel_map.effective_resolution(self._map_cfgs_tuple[int(cfg.used_types[0])])
-        rows = torch.cat([e["packed"].reshape(-1, n_packed)
-                          for e in self._stream_pending]).cpu().numpy()
+        rows = torch.cat([e["packed"].reshape(-1, n_packed) for e in self._stream_pending])
+        with span("slam.sync"):
+            rows = rows.cpu().numpy()
         # the segment's maps and last keypoints, copied out of the state (on
         # CUDA the graph's buffers, which the next segment overwrites)
         self.maps = {k: stream_graph.clone_tree(self._stream_state.maps[int(k)])
@@ -793,7 +818,9 @@ class Slam:
         return None
 
     def _pose_tensor(self, H):
-        return torch.tensor(se3.hmat_to_pose(H), dtype=torch.float32, device=self.device)
+        pose = se3.hmat_to_pose(H)
+        with span("slam.sync"):   # a blocking copy from pageable memory
+            return torch.tensor(pose, dtype=torch.float32, device=self.device)
 
     def _make_inputs(self, stamp) -> pipeline.FrameInputs:
         cfg = self.cfg
@@ -1427,7 +1454,19 @@ class Slam:
     def start_profiling(self, log_dir: str):
         """Start a torch.profiler trace (host ops, and the CUDA kernels and
         copies on a GPU) that `stop_profiling` writes under `log_dir`; read
-        it with `utils/profiling.py`, chrome://tracing or Perfetto."""
+        it with `utils/profiling.py`, chrome://tracing or Perfetto.
+
+        The trace holds the per-sweep path's stage spans as host ops on
+        the profiler's clock (`utils/timer.span`), nested by time:
+        `slam.add_frame` over `slam.ingest` (the sweep's build and upload),
+        `slam.step` (`slam.extract`, `slam.ego`, `slam.submap`, `slam.icp`
+        with one `slam.icp.round` of `slam.icp.match` and `slam.icp.solve`
+        per round, `slam.overlap`, `slam.map_update`); `slam.add_frame_async`
+        and `slam.flush` over `slam.ingest`, `slam.dispatch` (a window's
+        upload and graph replays) and `slam.step` (eager steps); and
+        `slam.sync` around every host read of a device result and every
+        blocking copy from pageable host memory (where the host waits on
+        the device)."""
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
@@ -1451,7 +1490,9 @@ class Slam:
         return path
 
     def get_timing_summary(self) -> dict:
-        """Host-side named-timer accumulators (verbosity >= 3 stages)."""
+        """Host wall time per span name (`start_profiling` lists them),
+        accumulated while `verbosity >= 3`: {name: {calls, total_s,
+        average_ms}}."""
         return timer.summary()
 
     # ------------------------------------------------------------------

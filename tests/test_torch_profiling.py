@@ -96,8 +96,9 @@ def test_cpu_trace_has_no_device_time(tmp_path):
 
 def test_slam_profiling_hooks_and_timing_summary(tmp_path, capsys):
     """start_profiling / stop_profiling write a Chrome trace of the frames
-    in between under log_dir; at verbosity 3 add_frame times its device
-    step, reported by get_timing_summary."""
+    in between under log_dir, the stage spans among its host ops; at
+    verbosity 3 add_frame times its stage spans, reported by
+    get_timing_summary and printed once a sweep."""
     frames = tsyn.generate_sequence(n_frames=2, motion_distortion=False,
                                     sensor=tsyn.SensorModel(n_azimuth=500))
     cfg = _torch_config(small_config())
@@ -114,7 +115,11 @@ def test_slam_profiling_hooks_and_timing_summary(tmp_path, capsys):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert sum(e.get("cat") == "cpu_op" for e in events) > 100
+    assert sum(e.get("name") == "slam.add_frame" for e in events) == 2
     assert profiling.device_busy_ms(path) == 0.0
     summary = slam.get_timing_summary()
-    assert summary["device step"]["calls"] == 2 and summary["device step"]["total_s"] > 0
-    assert capsys.readouterr().out.count("-> device step took") == 2
+    assert summary["slam.add_frame"]["calls"] == 2 and summary["slam.add_frame"]["total_s"] > 0
+    assert {"slam.ingest", "slam.step", "slam.extract", "slam.icp", "slam.icp.round",
+            "slam.sync"} <= set(summary)
+    assert all(name.startswith("slam.") for name in summary)
+    assert capsys.readouterr().out.count("-> slam.add_frame took") == 2
