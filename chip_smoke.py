@@ -36,10 +36,12 @@ the CUDA toolkit. Phases, each printed as it goes:
 4. the slice: `Slam(cfg, device="cuda").add_frame` over 30 VLP-16 sweeps at
    the bench configuration, held against the JAX package's trajectory
    (lidarslam_tpu_torch/data/vlp16_bench_ref.npz, made by
-   scripts/make_torch_reference.py) and the simulator ground truth, with
-   exactly 2 wrapper calls per localized frame; then a torch.profiler
-   window over 8 more synchronous frames (device busy time, kernels, each
-   k-NN kernel twice per frame and their device ms/frame);
+   scripts/make_torch_reference.py) and the simulator ground truth, every
+   frame after the first and the live graph's warm-up steps a replay of
+   its captured step (2 wrapper calls per warm-up step and the capture,
+   none per replay); then a torch.profiler window over 8 more synchronous
+   frames (device busy time, kernels, each k-NN kernel twice per frame and
+   their device ms/frame);
 5. the stream: `add_frame_async` x 30 + `flush` at `stream_window=8` on the
    same sweeps, every steady-state frame a CUDA-graph replay, held against
    the JAX package's streaming trajectory (vlp16_bench_stream_ref.npz) and
@@ -952,7 +954,7 @@ def phase_slice(frames):
     import torch
 
     from lidarslam_tpu_torch import Slam
-    from lidarslam_tpu_torch.ops import cuda_knn, icp
+    from lidarslam_tpu_torch.ops import cuda_knn, stream_graph
 
     ref = np.load(REF_PATH)
     if ref["poses"].shape[0] != len(frames):
@@ -969,10 +971,13 @@ def phase_slice(frames):
     launches = cuda_knn.LAUNCHES
 
     worst_ref, worst_gt = _check_trajectory("slice", frames, results, ref)
-    localized = len(frames) - 1   # the first frame only seeds the maps
-    if launches != 2 * localized:
-        raise AssertionError(f"{launches} kernel launches for {localized} localized "
-                             "frames (expected 2 each)")
+    # the first frame only seeds the maps; the live graph's warm-up steps
+    # and its capture call the wrapper (2 calls each), its replays do not
+    eager = 1 + stream_graph.WARMUP_STEPS
+    if launches != 2 * eager or slam.live_replays != len(frames) - eager:
+        raise AssertionError(f"{launches} kernel launches and {slam.live_replays} replays "
+                             f"in {len(frames)} frames (expected {2 * eager} and "
+                             f"{len(frames) - eager})")
     n_matches = [r["n_matches"] for r in results[1:]]
     ref_matches = [int(v) for v in ref["n_matches"][1:len(frames)]]
     ms_frame = 1000 * statistics.median(wall[1:])
@@ -989,24 +994,16 @@ def phase_slice(frames):
               f"{m.xyz.shape[0]} slots valid ({100 * n_valid / m.xyz.shape[0]:.1f}%), "
               f"overflow {int(slam.map_overflow[int(k)])}", flush=True)
 
-    # profiled: frames 17-24 of a second run, after 17 unprofiled ones; the
-    # ICP rounds the host exit let run are counted (the stream runs them all)
+    # profiled: frames 17-24 of a second run, after 17 unprofiled ones,
+    # each a replay of the live graph (every ICP round runs, gated)
     slam = Slam(bench_config(16, 1800), device="cuda")
     for f in frames[:PROFILED.start]:
         slam.add_frame(f)
-    rounds = []
-    robust_lm = icp.solver.robust_lm
-    icp.solver.robust_lm = lambda *a, **k: rounds.append(1) or robust_lm(*a, **k)
-    try:
-        prof = _profile(lambda: [slam.add_frame(frames[i]) for i in PROFILED],
-                        len(PROFILED))
-    finally:
-        icp.solver.robust_lm = robust_lm
+    prof = _profile(lambda: [slam.add_frame(frames[i]) for i in PROFILED], len(PROFILED))
     _check_knn_executions("slice", prof, len(PROFILED))
     print(f"[slice] profiled frames {PROFILED.start}-{PROFILED.stop - 1}: device busy "
-          f"{prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} device kernels/frame, "
-          f"{len(rounds)} ICP rounds run of "
-          f"{slam.cfg.localization_icp_max_iter * len(PROFILED)}; k-NN kernels "
+          f"{prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} device kernels/frame; "
+          f"k-NN kernels "
           f"{prof['knn_ms']:.4f} ms/frame ({100 * prof['knn_ms'] / prof['busy_ms']:.2f}% "
           f"of device busy), executions {prof['knn']} (device counts; traced"
           f" {prof['knn_traced']})", flush=True)
@@ -1474,16 +1471,18 @@ def phase_full(card: str, frames, ckpt_dir: Path):
         slam.add_frame(f)
     cuda_knn.LAUNCHES = 0
     prof = _profile(lambda: [slam.add_frame(frames[i]) for i in PROFILED], len(PROFILED))
-    if any(n != cuda_knn.LAUNCHES for n in prof["knn"].values()):
+    # replays of the live graph: its gated step runs every round, as the stream's
+    if cuda_knn.LAUNCHES or any(n != len(FULL_CALLS) * len(PROFILED)
+                                for n in prof["knn"].values()):
         raise AssertionError(f"[full] sync profile: executions {prof['knn']} for "
-                             f"{cuda_knn.LAUNCHES} wrapper calls")
+                             f"{cuda_knn.LAUNCHES} wrapper calls in {len(PROFILED)} "
+                             f"replays (expected {len(FULL_CALLS)} per frame each)")
     sync_prof = {**prof, "ms_frame": sync_ms}
     print(f"[full] sync profiled frames {PROFILED.start}-{PROFILED.stop - 1}: device busy "
           f"{prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} device kernels/frame, "
           f"k-NN executions {prof['knn']} (device counts; traced"
-          f" {prof['knn_traced']}) ({cuda_knn.LAUNCHES / len(PROFILED):.2f} calls "
-          f"per frame; the ego ICP exits early on a host read), k-NN {prof['knn_ms']:.4f} "
-          f"ms/frame", flush=True)
+          f" {prof['knn_traced']}) ({len(FULL_CALLS)} per replayed frame), k-NN "
+          f"{prof['knn_ms']:.4f} ms/frame", flush=True)
 
     # ---- add_frame_async + flush
     slam = Slam(cfg, device="cuda")
@@ -2461,8 +2460,9 @@ def write_cli_pcds(frames, directory, save_pcd):
 
 
 class GraphSteps:
-    """While installed, records each step of every captured stream graph
-    (`stream_graph._Replayed._step`): the graph, whether the step was a
+    """While installed, records each step of every captured graph (the
+    stream's and add_frame's, `stream_graph._Replayed._step`): the graph,
+    whether the step was a
     warm-up, the capture or a replay, the thread it ran in (by name: the
     runtime reuses a finished thread's ident, never its name), and the
     k-NN wrapper calls made during it (a capture's are the calls its
@@ -2758,6 +2758,7 @@ def phase_frontends(card: str, frames):
     from lidarslam_tpu_torch.core.se3 import quat_to_matrix
     from lidarslam_tpu_torch.io import csv_log, native, pcd
     from lidarslam_tpu_torch.io.yaml_config import load_config
+    from lidarslam_tpu_torch.ops import stream_graph
     from lidarslam_tpu_torch.paraview_plugin import SlamFilterCore, arrays_to_frame
     from lidarslam_tpu_torch.ros_node import LidarSlamNode, frame_to_cloud
 
@@ -2891,7 +2892,8 @@ def phase_frontends(card: str, frames):
 
     direct_stream, direct_map = stream_direct()
     head = frames[:FRONT_SWEEPS]
-    direct_sync, path_calls = sync_direct(head, record_at=FRONT_SWEEPS - 1)
+    # the last warm-up step of the live graph: the calls its replays run
+    direct_sync, path_calls = sync_direct(head, record_at=stream_graph.WARMUP_STEPS)
     vendor = [(f["xyz"], (np.asarray(f["time"], np.float64) + f["stamp"]) * 1e6,
                f["intensity"], f["laser_id"]) for f in head]
     direct_pv, _ = sync_direct([arrays_to_frame(*a, time_factor=1e-6) for a in vendor])
@@ -2964,9 +2966,10 @@ def phase_frontends(card: str, frames):
             server.server_close()
         return [np.asarray(m["pose"]).reshape(4, 4) for m in msgs]
 
-    got, calls, executed = _knn_counts(serve_sync)
+    with GraphSteps() as steps:
+        got, calls, executed = _knn_counts(serve_sync)
     launches["server sync"] = calls
-    _hold_executions("server sync", calls, executed)
+    _hold_executions("server sync", calls, executed, steps.replayed_calls())
     sync_err = _within("server sync", got, direct_sync)
 
     # ---- the ROS node (its Slam built from the yaml tree, on the card)
@@ -2982,9 +2985,10 @@ def phase_frontends(card: str, frames):
                 stamp=f["stamp"]))
         return ros
 
-    ros, calls, executed = _knn_counts(ros_drive)
+    with GraphSteps() as steps:
+        ros, calls, executed = _knn_counts(ros_drive)
     launches["ros node"] = calls
-    _hold_executions("ros node", calls, executed)
+    _hold_executions("ros node", calls, executed, steps.replayed_calls())
     odoms = []
     for m in ros.published["slam_odom"]:
         p, o = m["pose"]["pose"]["position"], m["pose"]["pose"]["orientation"]
@@ -3004,9 +3008,10 @@ def phase_frontends(card: str, frames):
             out = core.process(*a)
         return out["trajectory"]
 
-    traj, calls, executed = _knn_counts(pv_drive)
+    with GraphSteps() as steps:
+        traj, calls, executed = _knn_counts(pv_drive)
     launches["paraview core"] = calls
-    _hold_executions("paraview core", calls, executed)
+    _hold_executions("paraview core", calls, executed, steps.replayed_calls())
     pv = []
     for p, q in zip(traj["points"], traj["Orientation(Quaternion)"]):
         H = np.eye(4)

@@ -14,12 +14,13 @@ for one sweep. Where the JAX package decides on device with `lax.cond` /
   frame's one transfer of packed scalars (`pack_scalars`) and the map
   update is issued after it. A keyframe then reads the maps' post-insert
   overflow counts in a second small transfer.
-- `sync_free=True` (the streaming step): no host read. The submap rebuild
-  and the map update are computed every frame and `torch.where`-selected on
-  the device flags, both ICP loops run every round, gated, and the packed
-  scalars stay on the device. `_stream_step` chains the device
-  `StreamState` from frame to frame, so a CUDA graph can capture it
-  (ops/stream_graph.py).
+- `sync_free=True` (the streaming step, and `Slam.add_frame` on one CUDA
+  device): no host read. The submap rebuild and the map update are
+  computed every frame and `torch.where`-selected on the device flags,
+  both ICP loops run every round, gated, and the packed scalars stay on
+  the device, so a CUDA graph can capture the step (ops/stream_graph.py).
+  `_stream_step` chains the device `StreamState` from frame to frame;
+  `add_frame`'s graph takes the host's inputs each sweep.
 
 Both forms compute the keyframe thresholds from the keyframe counter on the
 device, and the covariance by a Jacobi pseudo-inverse (solver.py).
@@ -167,15 +168,17 @@ def init_submap_cache(cfg: SlamConfig, map_cfgs, device, sharded: bool = False):
 
 def process_frame(ri, maps: tuple, prev_keypoints: tuple, inp: FrameInputs,
                   cfg: SlamConfig, map_cfgs: tuple, first_frame: bool, mesh=None,
-                  shard_maps: bool = False, shard_extraction: bool = False) -> FrameResult:
+                  shard_maps: bool = False, shard_extraction: bool = False,
+                  sync_free: bool = False) -> FrameResult:
     """Full per-sweep step from a range image (or one of its wires);
     `prev_keypoints`: the previous sweep's Keypoints per type (ego-motion
-    registration's target). `mesh`, `shard_maps`, `shard_extraction`: see
-    the module docstring."""
+    registration's target). `sync_free`: the form with no host read, which
+    `Slam.add_frame` replays as a CUDA graph (ops/stream_graph.FrameGraph);
+    `mesh`, `shard_maps`, `shard_extraction`: see the module docstring."""
     ri = ensure_range_image(ri)
     return process_keypoints(_extract(ri, inp.az_resolution, cfg, mesh, shard_extraction),
                              ri, maps, prev_keypoints, inp, cfg, map_cfgs, first_frame,
-                             mesh=mesh, shard_maps=shard_maps)
+                             sync_free=sync_free, mesh=mesh, shard_maps=shard_maps)
 
 
 def _extract(ri, az_res, cfg: SlamConfig, mesh, shard_extraction: bool):

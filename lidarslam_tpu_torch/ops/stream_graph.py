@@ -35,6 +35,15 @@ of a frame then launch as one graph instead of one Python call each.
 
 Nothing falls back to eager execution: a capture or replay failure raises.
 
+`FrameGraph` replays `Slam.add_frame`'s step the same way on one device
+with no mesh: `pipeline.process_frame(sync_free=True)` on the sweep's own
+wire (the `ByteRangeImage` buffer `add_frame` uploads, or its float
+planes), with the host's float64-computed inputs in one `FrameRecord`
+that goes up from pinned memory. Its state is the maps, the previous
+sweep's keypoints and the submap cache with its device staleness flag,
+written in place by each step; `Slam` reseeds it when its own state is not
+the graph's buffers.
+
 On a mesh (`parallel/sharded.py`) the graph holds this rank's SPMD step
 (`process_frame_stream_spmd` / `process_keypoints_stream_spmd`) with its
 collectives, the counterpart of the JAX package's one sharded dispatch
@@ -61,8 +70,8 @@ import torch
 
 from lidarslam_tpu_torch.config import SlamConfig
 from lidarslam_tpu_torch.ops import extractor, pipeline
-from lidarslam_tpu_torch.ops.frame import (FlatRangeImage, Keypoints, RangeImage,
-                                           transform_keypoints)
+from lidarslam_tpu_torch.ops.frame import (ByteRangeImage, FlatRangeImage, Keypoints,
+                                           RangeImage, transform_keypoints)
 from lidarslam_tpu_torch.sensors.constraints import (GravityResidual, OdomResidual,
                                                      inactive_gravity, inactive_odom)
 
@@ -261,6 +270,48 @@ class KeypointRecord:
             buf[4:4 + 4 * _BLOCK_LEN].view(torch.float32))
 
 
+class FrameRecord:
+    """Byte layout of one live sweep's host inputs on `FrameGraph`'s input,
+    in 4-byte slots:
+
+        [trel_prior f32 (6) | prev_pose f32 (6) | kf_last_pose f32 (6)]
+        [stamp f32 | t_prev f32 | az_resolution f32 | kf_counter i32]
+        [map_update f32 | force_stale f32]
+        [sensor blocks f32 (16), as in WireRecord]
+
+    The poses are the host's float64 values (MAP frame, xyzrpy) rounded to
+    float32, as `Slam._pose_tensor` rounds them."""
+
+    nbytes = 4 * (24 + _BLOCK_LEN)
+
+    @staticmethod
+    def pack(trel_prior, prev_pose, kf_last_pose, stamp, t_prev, az_resolution,
+             kf_counter, map_update, force_stale, extras=()) -> torch.Tensor:
+        """(nbytes,) uint8 record in pinned host memory where there is a GPU;
+        `extras`: the sweep's host sensor residuals (a kind missing is
+        written inactive)."""
+        out = _pinned(1, FrameRecord.nbytes)[0]
+        f = out.numpy().view(np.float32)
+        f[0:18] = np.concatenate([np.asarray(p, np.float64).reshape(6)
+                                  for p in (trel_prior, prev_pose, kf_last_pose)])
+        f[18:21] = (stamp, t_prev, az_resolution)
+        f[21:22].view(np.int32)[0] = kf_counter
+        f[22:24] = (float(map_update), float(force_stale))
+        f[24:] = _block_values(extras)
+        return out
+
+    @staticmethod
+    def unpack(buf: torch.Tensor):
+        """(FrameInputs without the submap cache, force_stale (), blocks) as
+        views of one record `buf`."""
+        f = buf.view(torch.float32)
+        inp = pipeline.FrameInputs(
+            trel_prior=f[0:6], prev_pose=f[6:12], kf_last_pose=f[12:18], stamp=f[18],
+            t_prev=f[19], az_resolution=f[20], kf_counter=f[21:22].view(torch.int32)[0],
+            map_update=f[22] > 0.5)
+        return inp, f[23] > 0.5, _unpack_blocks(f[24:])
+
+
 def _leaves(tree):
     if tree is None:
         return []
@@ -454,3 +505,78 @@ class StreamGraph(_Replayed):
             inp, self.state, stamp, self.az, self.cfg, self.map_cfgs, False, extras)
         assign_tree(self.state, new)
         return packed, kps_flat
+
+
+def _empty_wire(ri):
+    """Static buffers of the shape of one sweep's wire (a ByteRangeImage,
+    or a RangeImage of tensors)."""
+    if isinstance(ri, ByteRangeImage):
+        return ByteRangeImage(torch.empty_like(ri.buf), ri.shape)
+    return type(ri)(*(torch.empty_like(a) for a in ri))
+
+
+def _copy_wire(dst, src):
+    if isinstance(dst, ByteRangeImage):
+        dst.buf.copy_(src.buf)
+    else:
+        for a, b in zip(dst, src):
+            a.copy_(b)
+
+
+class FrameGraph(_Replayed):
+    """`Slam.add_frame`'s per-sweep step on one CUDA device (no mesh):
+    `pipeline.process_frame(sync_free=True)` replayed as a CUDA graph.
+
+    Static inputs: the sweep's wire as `add_frame` builds it (`wire`, the
+    template), copied in on the device, and a `FrameRecord` of the host's
+    inputs, one copy from pinned memory. Static state (`state`): the maps,
+    the previous sweep's keypoints, the submap cache and its device
+    staleness flag, written in place by each step (`seed` loads them from
+    the host). A step rebuilds the submap where the flag of the step before,
+    or the record's force-stale flag, says. `blocks`: the sensor blocks the
+    graph holds, as in StreamGraph. `step` returns the step's FrameResult,
+    its maps, keypoints, cache and flag being the state's buffers."""
+
+    def __init__(self, cfg: SlamConfig, map_cfgs: tuple, device, wire,
+                 blocks=(False, False)):
+        super().__init__(device)
+        self.cfg = cfg
+        self.map_cfgs = map_cfgs
+        self.blocks = tuple(blocks)
+        self.sweep = _empty_wire(wire)
+        self.record = torch.zeros(FrameRecord.nbytes, dtype=torch.uint8, device=self.device)
+        self.state = None   # (maps, prev_keypoints, submap_cache, cache_stale)
+
+    @property
+    def replays_next(self) -> bool:
+        """Whether the next `step` replays the graph (not a warm-up step)."""
+        return self.graph is not None or self.warmup_steps >= WARMUP_STEPS
+
+    def seed(self, maps, prev_keypoints, submap_cache, cache_stale):
+        """Load the host's state into the static buffers (`cache_stale` a
+        bool or a () tensor)."""
+        if not isinstance(cache_stale, torch.Tensor):
+            cache_stale = torch.full((), bool(cache_stale), dtype=torch.bool,
+                                     device=self.device)
+        st = (tuple(maps), tuple(prev_keypoints), tuple(submap_cache), cache_stale)
+        if self.state is None:
+            self.state = clone_tree(st)
+        else:
+            assign_tree(self.state, st)
+
+    def step(self, ri, record: torch.Tensor) -> pipeline.FrameResult:
+        """Step the sweep `ri` (on the device, of the template's wire) with
+        the host record `record` (FrameRecord.pack)."""
+        self.record.copy_(record, non_blocking=True)
+        _copy_wire(self.sweep, ri)
+        return self._step()
+
+    def _body(self):
+        inp, force_stale, blocks = FrameRecord.unpack(self.record)
+        maps, prev, cache, stale = self.state
+        inp = inp._replace(extras=tuple(b for b, held in zip(blocks, self.blocks) if held),
+                           submap_cache=cache, cache_stale=stale | force_stale)
+        res = pipeline.process_frame(self.sweep, maps, prev, inp, self.cfg, self.map_cfgs,
+                                     False, sync_free=True)
+        assign_tree(self.state, (res.maps, res.keypoints, res.submap_cache, res.cache_stale))
+        return res._replace(maps=maps, keypoints=prev, submap_cache=cache, cache_stale=stale)

@@ -3,7 +3,16 @@
 `Slam.add_frame` runs one sweep through `ops/pipeline.process_frame` on the
 Slam's device and keeps the float64 pose bookkeeping, the trajectory and
 keypoint logs and the rolling-map origin on the host, as the JAX package
-does. `Slam.add_frames` takes one acquisition of a multi-LiDAR rig: each
+does. On one CUDA device (no mesh) every sweep after the first replays
+the step's sync-free form as a captured CUDA graph
+(`stream_graph.FrameGraph`, after its eager warm-up steps): the host's
+inputs go up in one pinned record, and the host reads the packed scalars
+back once. The maps, the previous keypoints and the submap cache then
+live in the graph's buffers; whatever replaced them since the last replay
+(a reset, a stream segment's flush, a map load, the PGO, a checkpoint) is
+copied in before the next one.
+
+`Slam.add_frames` takes one acquisition of a multi-LiDAR rig: each
 device's sweep is extracted with its own `ExtractorConfig`, moved into BASE
 by its calibration offset (`set_base_to_lidar_offset`), time-rebased to the
 first frame's stamp, and the merged keypoints go through
@@ -74,6 +83,7 @@ write them on rank 0 only.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -184,6 +194,8 @@ class Slam:
         self._graph = None       # stream_graph.StreamGraph of the sweeps (CUDA)
         self._rig_graph = None   # ... of a rig's merged keypoints, sharing its state
         self._extract_graphs = {}   # device_id -> stream_graph.ExtractGraph (CUDA)
+        self._frame_graph = None  # stream_graph.FrameGraph of add_frame's step (CUDA)
+        self.live_replays = 0     # add_frame sweeps stepped by a replay of it
         self._profiler = None    # (torch.profiler.profile, log_dir) while profiling
         # per-LiDAR-device calibration: BASE <- LIDAR (Slam.h:502-505)
         self.base_to_lidar_offsets: Dict[int, np.ndarray] = {}
@@ -362,24 +374,84 @@ class Slam:
         else:
             with span("slam.ingest"):
                 ri = self._build_ri(frame)
-        if not _valid_az(self.azimuthal_resolution):
+        az_invalid = not _valid_az(self.azimuthal_resolution)
+        if az_invalid:
             with span("slam.sync"):
                 self.azimuthal_resolution = float(
                     estimate_azimuthal_resolution(ensure_range_image(ri)))
 
-        inp = self._make_inputs(stamp)
         first = not self._maps_populated
-        maps_in = tuple(self.maps.get(Keypoint(i)) for i in range(3))
-        with span("slam.step"):
-            res = self._step("process_frame")(ri, maps_in, self._prev_keypoints(), inp, cfg,
-                                               self._map_cfgs_tuple, first)
+        prev_kps = None
+        if first or az_invalid or not self._frame_captured():
+            inp = self._make_inputs(stamp)
+            maps_in = tuple(self.maps.get(Keypoint(i)) for i in range(3))
+            with span("slam.step"):
+                res = self._step("process_frame")(ri, maps_in, self._prev_keypoints(), inp,
+                                                   cfg, self._map_cfgs_tuple, first)
+        else:
+            with span("slam.step"):
+                res = self._replay_frame(ri, stamp)
+            prev_kps = res.keypoints
+            # the sweep's own keypoints, kept while later replays run
+            res = res._replace(keypoints=stream_graph.clone_tree(prev_kps))
         if next_frame is not None and next_frame.get("xyz") is not None \
                 and len(next_frame["xyz"]) > 0:
             with span("slam.ingest"):
                 self._prefetched = (next_frame["stamp"], self._build_ri(next_frame))
+        if isinstance(res.packed, torch.Tensor):   # a replay's one read
+            with span("slam.sync"):
+                res = res._replace(packed=res.packed.cpu().numpy())
         out = self._apply_result(res, stamp, t0)
+        if prev_kps is not None:
+            self._device_keypoints = prev_kps
         self.last_stamp = frame["stamp"]
         return out
+
+    def _frame_captured(self) -> bool:
+        """Whether add_frame replays its step as a CUDA graph: on one card,
+        with no mesh."""
+        return self.device.type == "cuda" and self.mesh is None
+
+    def _replay_frame(self, ri, stamp) -> pipeline.FrameResult:
+        """add_frame's step as a step of the live graph (a replay once it is
+        captured). The graph's state is reseeded from the host's where the
+        host's maps, previous keypoints or submap cache are not the graph's
+        buffers; new maps force the submap's rebuild. The result's packed
+        scalars stay on the device."""
+        trel_prior, prev_rel, kf_rel, t_prev, extras = self._host_inputs(stamp)
+        g = self._frame_graph_for(ri, extras)
+        maps = tuple(self.maps.get(Keypoint(i)) for i in range(3))
+        prev = self._prev_keypoints()
+        new_maps = g.state is None or any(a is not b for a, b in zip(maps, g.state[0]))
+        if new_maps or prev is not g.state[1] or self._submap_cache is not g.state[2] \
+                or self._cache_stale is not g.state[3]:
+            g.seed(maps, prev, self._submap_cache, self._cache_stale)
+        record = stream_graph.FrameRecord.pack(
+            trel_prior, prev_rel, kf_rel, stamp, t_prev, self.azimuthal_resolution,
+            self.kf_counter, self.mapping_mode != MappingMode.NONE, new_maps, extras)
+        replay = g.replays_next
+        with span("slam.replay") if replay else contextlib.nullcontext():
+            res = g.step(ri, record)
+        self.live_replays += replay
+        return res
+
+    def _frame_graph_for(self, ri, extras):
+        """The live graph, built at first use on the wire of `ri` with the
+        sensor blocks of the configured weights, and anew, taking over the
+        old one's state buffers, for a block of a kind it lacks (captured
+        anew, as `_graph_with_blocks` does for the stream)."""
+        g = self._frame_graph
+        have = g.blocks if g is not None else (self.wheel_odom.weight > 1e-6,
+                                               self.imu.weight > 1e-6)
+        need = tuple(h or any(isinstance(e, kind) for e in extras)
+                     for h, kind in zip(have, stream_graph.BLOCK_KINDS))
+        if g is None or need != g.blocks:
+            new = stream_graph.FrameGraph(self.cfg, self._map_cfgs_tuple, self.device, ri,
+                                          blocks=need)
+            if g is not None:
+                new.state = g.state
+            g = self._frame_graph = new
+        return g
 
     def _build_ri(self, frame, device=None):
         """The sweep's wire on the Slam's device; `device=False`: the host
@@ -817,12 +889,15 @@ class Slam:
         self.last_seq = frame.get("seq")
         return None
 
-    def _pose_tensor(self, H):
-        pose = se3.hmat_to_pose(H)
+    def _pose_tensor(self, pose):
         with span("slam.sync"):   # a blocking copy from pageable memory
             return torch.tensor(pose, dtype=torch.float32, device=self.device)
 
-    def _make_inputs(self, stamp) -> pipeline.FrameInputs:
+    def _host_inputs(self, stamp):
+        """The step's inputs as host values, in float64: the ego-motion
+        prior, the previous pose and the last keyframe's pose (MAP frame;
+        each xyzrpy), the previous stamp and the sweep's host sensor
+        residuals."""
         cfg = self.cfg
         # ego-motion extrapolation (host, Slam.cxx:813-836)
         trel_prior = np.eye(4)
@@ -839,11 +914,16 @@ class Slam:
 
         prev_rel = self.Tworld.copy()
         prev_rel[:3, 3] -= self.map_origin
-        # sensor constraints (Slam::ComputeSensorConstraints)
-        extras = tuple(on_device(e, self.device) for e in self._stream_extras(stamp))
         kf_rel = self.kf_last_pose.copy()
         kf_rel[:3, 3] -= self.map_origin
         t_prev = self.log_trajectory[-1]["time"] if self.log_trajectory else stamp
+        extras = self._stream_extras(stamp)   # Slam::ComputeSensorConstraints
+        return (se3.hmat_to_pose(trel_prior), se3.hmat_to_pose(prev_rel),
+                se3.hmat_to_pose(kf_rel), t_prev, extras)
+
+    def _make_inputs(self, stamp) -> pipeline.FrameInputs:
+        """The eager step's inputs: `_host_inputs` on the device."""
+        trel_prior, prev_rel, kf_rel, t_prev, extras = self._host_inputs(stamp)
         return pipeline.FrameInputs(
             trel_prior=self._pose_tensor(trel_prior),
             prev_pose=self._pose_tensor(prev_rel),
@@ -852,7 +932,7 @@ class Slam:
             az_resolution=float(np.float32(self.azimuthal_resolution)),
             kf_last_pose=self._pose_tensor(kf_rel),
             kf_counter=int(self.kf_counter),
-            extras=extras,
+            extras=tuple(on_device(e, self.device) for e in extras),
             map_update=self.mapping_mode != MappingMode.NONE,
             submap_cache=self._submap_cache,
             cache_stale=self._cache_stale)
@@ -1461,7 +1541,10 @@ class Slam:
         `slam.add_frame` over `slam.ingest` (the sweep's build and upload),
         `slam.step` (`slam.extract`, `slam.ego`, `slam.submap`, `slam.icp`
         with one `slam.icp.round` of `slam.icp.match` and `slam.icp.solve`
-        per round, `slam.overlap`, `slam.map_update`); `slam.add_frame_async`
+        per round, `slam.overlap`, `slam.map_update`; on one CUDA device,
+        past the live graph's warm-up, one `slam.replay` of the captured
+        step, the stage spans running only at its warm-up and capture);
+        `slam.add_frame_async`
         and `slam.flush` over `slam.ingest`, `slam.dispatch` (a window's
         upload and graph replays) and `slam.step` (eager steps); and
         `slam.sync` around every host read of a device result and every

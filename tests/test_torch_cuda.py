@@ -242,7 +242,9 @@ def test_cuda_wrapper_checks_inputs(cuda):
 def test_cuda_slice_matches_cpu_slice(cuda):
     """The same small run on the card (kernel) and on the CPU (plain
     versions): the reference CI's pose tolerance, n_matches within 1%, and
-    two kernel launches per localized frame."""
+    each k-NN kernel run twice per localized frame (on the card the live
+    graph's warm-up steps and its capture call the wrapper, and its
+    replays run the captured calls)."""
     cfg = SlamConfig(
         extractor=ExtractorConfig(n_rings=16, max_ring_points=1024, max_keypoints=1024),
         edge_map=MapConfig(leaf_size=0.30, capacity=1 << 15, grid_size=26),
@@ -253,11 +255,15 @@ def test_cuda_slice_matches_cpu_slice(cuda):
         n_frames=5, motion_distortion=False,
         sensor=synthetic.SensorModel(range_noise=0.005))
     gpu, cpu = Slam(cfg, device=cuda), Slam(cfg, device="cpu")
+    torch.cuda.synchronize()
+    cuda_knn.reset_executions()
     cuda_knn.LAUNCHES = 0
     rg = [gpu.add_frame(f) for f in frames]
     launches = cuda_knn.LAUNCHES
+    executed = cuda_knn.executions()
     rc = [cpu.add_frame(f) for f in frames]
-    assert launches == 2 * (len(frames) - 1)
+    assert launches == 2 * (1 + stream_graph.WARMUP_STEPS)
+    assert executed == {k: 2 * (len(frames) - 1) for k in cuda_knn.KERNELS}
     for a, b in zip(rg, rc):
         assert not a["failure"] and not b["failure"]
         assert np.linalg.norm(a["pose"][:3, 3] - b["pose"][:3, 3]) < 0.01
@@ -597,6 +603,101 @@ def test_cuda_logged_keypoints_are_the_logs_own(cuda):
     slam.flush()
     assert all(torch.equal(a, b) for e, c in kept for a, b in zip(e, c))
     assert all(torch.equal(e._buf, c) for e, c in views)
+
+
+def _live_pair(cfg, cuda):
+    """Two Slams on the card: one replays add_frame's step from the live
+    graph, the other runs it op by op (the eager sync path)."""
+    replay, eager = Slam(cfg, device=cuda), Slam(cfg, device=cuda)
+    eager._frame_captured = lambda: False
+    return replay, eager
+
+
+def _same_sweep(replay, eager, a, b):
+    assert np.linalg.norm(a["pose"][:3, 3] - b["pose"][:3, 3]) < 1e-5
+    assert a["n_matches"] == b["n_matches"] and a["failure"] == b["failure"]
+    assert np.array_equal(replay.match_counts, eager.match_counts)
+    assert replay.kf_counter == eager.kf_counter
+
+
+@pytest.mark.cuda
+def test_cuda_add_frame_replays_the_live_graph(cuda):
+    """add_frame replays its captured step after the first sweep and the
+    warm-up steps, and holds to the eager sync path on the card: poses
+    within 1e-5 m, the same keyframes and match counts (REFINED
+    undistortion on distorted sweeps); the maps, keypoints and debug
+    arrays read the same."""
+    from lidarslam_tpu_torch.config import UndistortionMode
+
+    cfg = _small_stream_cfg().replace(undistortion=UndistortionMode.REFINED)
+    frames = synthetic.generate_sequence(
+        n_frames=30, motion_distortion=True, sensor=synthetic.SensorModel(range_noise=0.005))
+    replay, eager = _live_pair(cfg, cuda)
+    for f in frames:
+        _same_sweep(replay, eager, replay.add_frame(f), eager.add_frame(f))
+    assert replay.live_replays == len(frames) - (1 + stream_graph.WARMUP_STEPS)
+    assert replay._frame_graph.graph is not None
+    assert eager._frame_graph is None and eager.live_replays == 0
+    assert replay.kf_counter > 1
+    for k in cfg.used_types:
+        pa, pb = replay.get_map_points(k)[0], eager.get_map_points(k)[0]
+        assert pa.shape == pb.shape and np.abs(pa - pb).max() < 1e-4
+        np.testing.assert_allclose(replay.get_keypoints(k, world=True),
+                                   eager.get_keypoints(k, world=True), atol=1e-4)
+    da, db = replay.get_debug_array(), eager.get_debug_array()
+    assert set(da) == set(db) and all(np.array_equal(da[n], db[n]) for n in da if "status" in n)
+
+
+@pytest.mark.cuda
+def test_cuda_live_graph_reseeds_and_recaptures(cuda, tmp_path):
+    """The live graph against the eager sync path on the card through a
+    stream segment and its flush, a reset with the maps loaded back from
+    PCD (each state copied into the graph's buffers), and wheel odometry
+    that starts mid-run (a block the graph lacks: captured anew)."""
+    import chip_smoke
+
+    frames = synthetic.generate_sequence(
+        n_frames=30, motion_distortion=False, sensor=synthetic.SensorModel(range_noise=0.005))
+    times, odo, _ = chip_smoke.sensor_measurements(synthetic.straight_then_turn_trajectory(),
+                                                   3.1)
+    replay, eager = _live_pair(_small_stream_cfg(), cuda)
+    pair = (replay, eager)
+    graphs, n_sync = [], 0
+    for i, f in enumerate(frames):
+        if 8 <= i < 12:       # a stream segment, flushed before sweep 12
+            assert [s.add_frame_async(f) for s in pair] == [i - 8] * 2
+            if i == 11:
+                for a, b in zip(*(s.flush() for s in pair)):
+                    _same_sweep(replay, eager, a, b)
+            continue
+        if i == 18:           # a reset, the maps loaded back, the pose given
+            for s, name in ((replay, "replay_"), (eager, "eager_")):
+                pose = s.get_world_transform()
+                s.save_maps_to_pcd(str(tmp_path / name))
+                s.reset()
+                s.load_maps_from_pcd(str(tmp_path / name))
+                s.set_world_transform_from_guess(pose)
+        if i == 24:           # wheel odometry from here on
+            for s in pair:
+                s.set_wheel_odom_weight(1.0)
+                for t, d in zip(times, odo):
+                    s.add_wheel_odom_measurement(float(t), float(d))
+        _same_sweep(replay, eager, replay.add_frame(f), eager.add_frame(f))
+        n_sync += 1
+        g = replay._frame_graph
+        graphs.append(g)
+        # the first sweep, and the one after the reset (which estimates the
+        # azimuthal resolution anew), run eagerly; the others leave the
+        # maps in the graph's buffers
+        if i not in (0, 18):
+            assert all(replay.maps[k] is g.state[0][int(k)] for k in replay.cfg.used_types)
+    # sync sweeps 0-7 and 12-29; the odometer's first reading (sweep 24)
+    # sets its origin, so the blocks arrive from sweep 25 (graphs[21])
+    first, second = graphs[1], graphs[-1]
+    assert all(g is first for g in graphs[1:21]) and first.blocks == (False, False)
+    assert all(g is second for g in graphs[21:]) and second.blocks == (True, False)
+    assert second.graph is not None and second.state is first.state
+    assert replay.live_replays == n_sync - 2 - 2 * stream_graph.WARMUP_STEPS
 
 
 def _pgo_graph(n=200, seed=7):

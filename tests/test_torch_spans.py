@@ -220,7 +220,8 @@ def _hand_built(path):
                  ("slam.icp.solve", 31, 40), ("slam.sync", 41, 44),
                  ("slam.icp.round", 46, 70), ("slam.icp.match", 47, 55),
                  ("slam.icp.solve", 56, 65), ("slam.sync", 66, 69),
-                 ("slam.sync", 72, 76), ("slam.map_update", 78, 88), ("slam.sync", 85, 87)]
+                 ("slam.sync", 72, 76), ("slam.map_update", 78, 88), ("slam.sync", 85, 87),
+                 ("slam.replay", 88, 89)]
         other = [("aten::mul", 22, 23), ("cudaLaunchKernel", 22, 22),
                  ("cuLaunchKernel", 50, 50), ("cudaLaunchKernelExC", 60, 60),
                  ("cudaLaunchKernel", 8, 8), ("cudaMemcpyAsync", 30, 30)]
@@ -254,6 +255,7 @@ SPAN_READINGS = {
     "ingest_host_ms_per_sweep.log": 3 / 2,
     "sync_wait_ms_per_sweep.log": 8 / 2,
     "dispatch_host_ms_per_sweep.log": 19 / 2,
+    "live_replays_per_sweep.live": 1 / 2,
 }
 
 

@@ -473,3 +473,95 @@ def test_stream_unported_options_raise(runs, change):
     assert [slam.add_frame_async(f) for f in runs["frames"][:2]] == [0, 1]
     out = slam.flush()
     assert len(out) == 2 and not any(o["failure"] for o in out)
+
+
+# the live graph's step (ops/stream_graph.FrameGraph) against add_frame's
+# host-branch step: (undistortion, keyframe thresholds (m, deg), what
+# happens between the sweeps MID and MID + 1)
+_LIVE_MID = 3
+_LIVE_CASES = {
+    "keyframe_every_sweep": ("NONE", (0.0, 0.0), None),
+    "refined_keyframe_every_sweep": ("REFINED", (0.0, 0.0), None),
+    "few_keyframes": ("NONE", (50.0, 180.0), None),
+    "refined_few_keyframes": ("REFINED", (50.0, 180.0), None),
+    "stale_submap_forced": ("NONE", (50.0, 180.0), "stale"),
+    "stream_segment_between": ("REFINED", (0.0, 0.0), "segment"),
+}
+
+
+def _live_config(undistortion, kf):
+    from lidarslam_tpu_torch.config import ExtractorConfig as TExtractor
+    from lidarslam_tpu_torch.config import MapConfig as TMap
+    from lidarslam_tpu_torch.config import SlamConfig as TConfig
+    from lidarslam_tpu_torch.config import UndistortionMode as TUndistortion
+
+    return TConfig(
+        extractor=TExtractor(n_rings=16, max_ring_points=512, max_keypoints=256),
+        edge_map=TMap(leaf_size=0.30, capacity=1 << 13, grid_size=26),
+        plane_map=TMap(leaf_size=0.60, capacity=1 << 13, grid_size=26),
+        blob_map=TMap(leaf_size=0.30, capacity=1 << 13, grid_size=26),
+        loc_matching=TMatching(reuse_knn=True), undistortion=TUndistortion[undistortion],
+        kf_distance_threshold=kf[0], kf_angle_threshold=kf[1])
+
+
+@pytest.mark.parametrize("case", sorted(_LIVE_CASES))
+def test_live_graph_step_equals_host_branches(case, monkeypatch):
+    """add_frame's step through the live graph's body (`FrameGraph._body`,
+    called directly: the CPU has no graph to capture) against the
+    host-branch step, from the same host state every sweep: the same
+    packed scalars (the overflow after the insert in both), poses, maps
+    and keypoints. Between two sweeps a case forces the submap stale, or
+    runs a stream segment, after which the graph's state is reseeded."""
+    from lidarslam_tpu_torch.io import synthetic as tsyn
+
+    undistortion, kf, event = _LIVE_CASES[case]
+    cfg = _live_config(undistortion, kf)
+    frames = tsyn.generate_sequence(n_frames=8, motion_distortion=undistortion != "NONE",
+                                    sensor=tsyn.SensorModel(n_azimuth=500))
+    monkeypatch.setattr(stream_graph.FrameGraph, "_step", stream_graph.FrameGraph._body)
+    seeds = []
+    real_seed = stream_graph.FrameGraph.seed
+    monkeypatch.setattr(stream_graph.FrameGraph, "seed",
+                        lambda g, *a: seeds.append(len(rows[1])) or real_seed(g, *a))
+    slams = (TSlam(cfg, device="cpu"), TSlam(cfg, device="cpu"))
+    slams[1]._frame_captured = lambda: True
+    rows = ([], [])
+    for s, r in zip(slams, rows):
+        s._apply_result = (lambda res, *a, real=s._apply_result, r=r:
+                           r.append((res.packed.copy(), res.is_keyframe)) or real(res, *a))
+    kfs = []
+    for i, f in enumerate(frames):
+        if i == _LIVE_MID + 1 and event == "stale":
+            for s in slams:
+                s._invalidate_submaps()
+        if i in (_LIVE_MID + 1, _LIVE_MID + 2) and event == "segment":
+            for s in slams:
+                s.add_frame_async(f)
+            if i == _LIVE_MID + 2:
+                for s in slams:
+                    s.flush()
+            continue
+        outs = [s.add_frame(f) for s in slams]
+        (pa, kfa), (pb, kfb) = rows[0][-1], rows[1][-1]
+        np.testing.assert_array_equal(pa, pb)
+        assert np.array_equal(outs[0]["pose"], outs[1]["pose"])
+        for k in cfg.used_types:
+            for a, b in zip(slams[0].maps[k], slams[1].maps[k]):
+                assert torch.equal(a, b)
+            for a, b in zip(slams[0].current_keypoints[k], slams[1].current_keypoints[k]):
+                assert torch.equal(a, b)
+        kfs.append(bool(kfa))
+        assert bool(kfa) == bool(kfb)
+    graph = slams[1]._frame_graph
+    assert graph is not None and slams[1]._device_keypoints is graph.state[1]
+    assert all(a is b for a, b in zip((slams[1].maps[k] for k in cfg.used_types),
+                                      (graph.state[0][int(k)] for k in cfg.used_types)))
+    assert seeds[0] == 1                         # built on the second sweep
+    if event is not None:                        # the event's state was copied in
+        assert seeds[1:] == [_LIVE_MID + 1]
+    else:
+        assert seeds == [1]
+    if kf == (0.0, 0.0):
+        assert all(kfs)
+    else:
+        assert not all(kfs[1:])
