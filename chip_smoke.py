@@ -1083,7 +1083,8 @@ def phase_stream(frames, card: str, sync: dict):
     g.graph.replay()
     packed_graph = g._outputs[0].clone()
     e, r = packed_eager.cpu().numpy(), packed_graph.cpu().numpy()
-    ue, ur = pipeline.unpack_scalars(e[:64]), pipeline.unpack_scalars(r[:64])
+    ue = pipeline.unpack_scalars(e[:pipeline.PACKED_LEN])
+    ur = pipeline.unpack_scalars(r[:pipeline.PACKED_LEN])
     dt, dr = pose_errors(se3.pose_to_hmat(ur["pose"]), se3.pose_to_hmat(ue["pose"]))
     if dt > REPLAY_TOL_M or dr > REPLAY_TOL_DEG or ue["total"] != ur["total"] \
             or (ue["counts"] != ur["counts"]).any():
@@ -1167,8 +1168,8 @@ def _replay_vs_eager(tag, g, record, step, cfg, map_cfgs, path_calls=None, exact
     _require(not exact or np.array_equal(e, r),
              f"[{tag}] replay != eager step in {int(np.sum(e != r))} of {e.size} packed "
              "scalars")
-    ue = pipeline.unpack_scalars(e[:64])
-    ur = pipeline.unpack_scalars(r[:64])
+    ue = pipeline.unpack_scalars(e[:pipeline.PACKED_LEN])
+    ur = pipeline.unpack_scalars(r[:pipeline.PACKED_LEN])
     dt, dr = pose_errors(se3.pose_to_hmat(ur["pose"]), se3.pose_to_hmat(ue["pose"]))
     _require(dt <= REPLAY_TOL_M and dr <= REPLAY_TOL_DEG and ue["total"] == ur["total"]
              and np.array_equal(ue["counts"], ur["counts"]),
@@ -1532,8 +1533,8 @@ def phase_full(card: str, frames, ckpt_dir: Path):
     g.record.copy_(record)
     g.graph.replay()
     packed_graph = g._outputs[0].clone()
-    ue = pipeline.unpack_scalars(packed_eager.cpu().numpy()[:64])
-    ur = pipeline.unpack_scalars(packed_graph.cpu().numpy()[:64])
+    ue = pipeline.unpack_scalars(packed_eager.cpu().numpy()[:pipeline.PACKED_LEN])
+    ur = pipeline.unpack_scalars(packed_graph.cpu().numpy()[:pipeline.PACKED_LEN])
     dt, dr = pose_errors(se3.pose_to_hmat(ur["pose"]), se3.pose_to_hmat(ue["pose"]))
     if dt > REPLAY_TOL_M or dr > REPLAY_TOL_DEG or ue["total"] != ur["total"] \
             or (ue["counts"] != ur["counts"]).any() or abs(ue["overlap"] - ur["overlap"]) > 1e-5:
@@ -2156,9 +2157,9 @@ def phase_ext(card: str, frames):
     g.record.copy_(record)
     g.graph.replay()
     packed_graph = g._outputs[0].clone()
-    ue = pipeline.unpack_scalars(packed_eager.cpu().numpy()[:64])
-    ur = pipeline.unpack_scalars(packed_graph.cpu().numpy()[:64])
-    ud = pipeline.unpack_scalars(packed_dropped.cpu().numpy()[:64])
+    ue = pipeline.unpack_scalars(packed_eager.cpu().numpy()[:pipeline.PACKED_LEN])
+    ur = pipeline.unpack_scalars(packed_graph.cpu().numpy()[:pipeline.PACKED_LEN])
+    ud = pipeline.unpack_scalars(packed_dropped.cpu().numpy()[:pipeline.PACKED_LEN])
     dt, dr = pose_errors(se3.pose_to_hmat(ur["pose"]), se3.pose_to_hmat(ue["pose"]))
     d_drop = pose_errors(se3.pose_to_hmat(ud["pose"]), se3.pose_to_hmat(ue["pose"]))
     _require(not np.array_equal(ud["pose"], ue["pose"]) and dt <= d_drop[0],

@@ -24,6 +24,10 @@ launches (plan, prefix, scan, merge; see the note at the top of
 stream, so the call can be captured in a CUDA graph. The kernels also
 count their own executions on the device, graph replays included:
 `executions` reads those counts and `reset_executions` clears them.
+
+The same library holds the port's stage markers (`mark`): empty kernels
+named `slam_mark_<stage>`, launched on the current stream, so that a device
+trace shows where a stage begins and ends inside a replayed graph.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ _INT_MAX = 2**31 - 1
 
 LAUNCHES = 0       # kernel launches made through `launch`
 KERNELS = ("knn_plan", "knn_prefix", "knn_scan", "knn_merge")  # csrc/knn.cu
+MARKS = ("ego_begin", "ego_end")   # csrc/knn.cu slam_mark_<name>, in slam_mark's order
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "knn.cu"
@@ -238,6 +243,8 @@ def _library():
             lib.knn_executions.restype = i32
             lib.knn_reset_executions.argtypes = []
             lib.knn_reset_executions.restype = i32
+            lib.slam_mark.argtypes = [i32, ptr]
+            lib.slam_mark.restype = i32
             consts = (lib.knn_sub_block, lib.knn_tile, lib.knn_max_k,
                       lib.knn_scan_warps_per_cta)
             for const in consts:
@@ -269,6 +276,17 @@ def reset_executions(device="cuda") -> None:
         rc = _library().knn_reset_executions()
     if rc != 0:
         raise RuntimeError(f"knn_reset_executions failed: cudaError {rc}")
+
+
+def mark(name: str, device) -> None:
+    """Launch the empty marker kernel `slam_mark_<name>` (MARKS) on the
+    current stream of the CUDA `device`."""
+    dev = torch.device(device)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _library().slam_mark(MARKS.index(name), stream)
+    if rc != 0:
+        raise RuntimeError(f"slam_mark({name}) failed: cudaError {rc}")
 
 
 def grid_warps(k: int, device) -> int:

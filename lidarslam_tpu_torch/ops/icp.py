@@ -18,6 +18,11 @@ With `MatchingConfig.reuse_knn` the map k-NN runs once, in round 0, and later
 rounds reuse the neighbour coordinates with exact distances against the
 refined pose: one kernel launch per keypoint type per frame.
 
+With `count=True` the loop also counts on the device the rounds whose gate
+was still open when they began and the LM trips those rounds' solves began
+before converging (`ICPResult.rounds`, `ICPResult.lm_steps`): the same
+numbers on both forms, read with the step's other scalars.
+
 Undistortion (ONCE / REFINED) warps the raw keypoints by the sweep motion
 (`undistortion.compute_warp`) before they are matched: ONCE keeps the warp
 of the prior pose for every round, REFINED rebuilds it from the current
@@ -57,6 +62,8 @@ class ICPResult(NamedTuple):
     statuses: tuple               # (Q,) uint8 per type — last-round debug codes
     weights: tuple                # (Q,) f32 per type
     warp: object = None           # final WarpParams (None when not undistorting)
+    rounds: object = None         # () int32 rounds begun with the gate open (count)
+    lm_steps: object = None       # () int32 LM trips of those rounds before convergence
 
 
 _MATCH_FNS = {Keypoint.EDGE: matcher.match_edges,
@@ -79,7 +86,7 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
                  prev_pose=None, t_prev=None, t_cur=None, time_range=None,
                  max_extrapolation_ratio: float = 3.0, extras=(),
                  gated: bool = False, prune_radii=(None, None, None), mesh=None,
-                 map_shard: bool = False) -> ICPResult:
+                 map_shard: bool = False, count: bool = False) -> ICPResult:
     """Run the ICP-LM loop from `pose0`. `prepared`: per-type
     `cuda_knn.KnnIndex` (built here when missing on CUDA). `gated`: run
     every round with no host read (see module docstring). Undistortion
@@ -94,7 +101,8 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
     rank steps the same pose. `map_shard`: the indices are this rank's
     slabs of slab-sharded maps; each k-NN then gathers the queries and
     merges the slabs' candidates (`matcher._knn`), and `reuse_knn` is off,
-    as in the JAX package."""
+    as in the JAX package. `count`: count the open rounds and their live LM
+    trips (see the module docstring)."""
     pose = pose0.to(torch.float32)
     dev = pose.device
     active = torch.ones((), dtype=torch.bool, device=dev)
@@ -126,6 +134,7 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
     reuse = params.reuse_knn and icp_iters > 1 and not map_shard
     map_mesh = mesh if map_shard else None
     knn_cache = None
+    opened, trips = [], []   # per round begun: its gate, its solve's live trips
 
     for it in range(icp_iters):
         with span("slam.icp.round"):
@@ -167,7 +176,10 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
 
             with span("slam.icp.solve"):
                 res = solver.robust_lm(blocks, pose, sat, solver_cfg, lm_max_iter,
-                                       extras=extras, mesh=mesh)
+                                       extras=extras, mesh=mesh, count_trips=count)
+            if count:
+                opened.append(active)
+                trips.append(res.trips)
 
             step_ok = active & enough
             pose = torch.where(step_ok, res.pose, pose)
@@ -193,6 +205,11 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
     if undistort:
         final_warp = make_warp(pose) if undistort_mode == UndistortionMode.REFINED \
             else prior_warp
+    rounds = lm_steps = None
+    if count:
+        gate = torch.stack(opened).to(torch.int32)
+        rounds = gate.sum(dtype=torch.int32)
+        lm_steps = (gate * torch.stack(trips)).sum(dtype=torch.int32)
     return ICPResult(pose=pose, failed=failed, total_matches=total,
                      match_counts=counts, H=H, statuses=statuses, weights=weights,
-                     warp=final_warp)
+                     warp=final_warp, rounds=rounds, lm_steps=lm_steps)

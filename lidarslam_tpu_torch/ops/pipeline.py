@@ -63,7 +63,7 @@ from lidarslam_tpu_torch.ops import extractor, icp, matcher, solver, undistortio
 from lidarslam_tpu_torch.ops.frame import (FlatRangeImage, Keypoints, ensure_range_image,
                                            flatten_keypoints, merge_keypoints)
 from lidarslam_tpu_torch.parallel import sharded_map
-from lidarslam_tpu_torch.utils.timer import span
+from lidarslam_tpu_torch.utils.timer import device_mark, span
 
 
 class SubmapCache(NamedTuple):
@@ -109,28 +109,32 @@ class FrameResult(NamedTuple):
     warp: object                 # final WarpParams or None
     statuses: tuple              # (Q,) uint8 per used type
     weights: tuple               # (Q,) f32 per used type
-    packed: object               # (64,) pack_scalars: a host copy (numpy) on
-                                 # the synchronous path, a tensor when sync-free
+    packed: object               # (PACKED_LEN,) pack_scalars: a host copy (numpy)
+                                 # on the synchronous path, a tensor when sync-free
     submap_cache: tuple = (None, None, None)
     cache_stale: object = True   # for the next frame
 
 
-PACKED_LEN = 64
+PACKED_LEN = 72
 
 
 def pack_scalars(pose, trel, failed, total, counts, cov, roll_offset, is_kf,
-                 overlap, map_overflow, kp_counts):
-    """All host-bound scalars in one (64,) f32 tensor (one transfer)."""
+                 overlap, map_overflow, kp_counts, ego_trel, ego_counts):
+    """All host-bound scalars in one (PACKED_LEN,) f32 tensor (one
+    transfer). The first 64 are the JAX package's packed scalars; then the
+    ego-motion registration's refined estimate (its prior where the stage
+    did not run or failed) and its device counts (open rounds, live LM
+    trips; 0 where it did not run)."""
     f = torch.float32
     return torch.cat([
         pose.to(f), trel.to(f), counts.to(f),
         torch.stack([failed.to(f), total.to(f), is_kf.to(f), overlap.to(f)]),
         cov.reshape(-1).to(f), roll_offset.to(f), map_overflow.to(f),
-        kp_counts.to(f)])
+        kp_counts.to(f), ego_trel.to(f), ego_counts.to(f)])
 
 
 def unpack_scalars(packed):
-    """numpy (64,) -> dict mirroring pack_scalars."""
+    """numpy (PACKED_LEN,) -> dict mirroring pack_scalars."""
     return {
         "pose": np.asarray(packed[0:6], np.float64),
         "trel": np.asarray(packed[6:12], np.float64),
@@ -143,6 +147,9 @@ def unpack_scalars(packed):
         "roll_offset": packed[55:58].astype(np.int64),
         "map_overflow": packed[58:61].astype(np.int64),
         "kp_counts": packed[61:64].astype(np.int64),
+        "ego_trel": np.asarray(packed[64:70], np.float64),
+        "ego_rounds": int(packed[70]),
+        "ego_lm_steps": int(packed[71]),
     }
 
 
@@ -251,11 +258,14 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
 
     # ---------------- ego-motion registration (optional) ----------------
     trel = inp.trel_prior
+    ego_counts = torch.zeros((2,), dtype=torch.int32, device=dev)
     if cfg.ego_motion_mode in (EgoMotionMode.REGISTRATION,
                                EgoMotionMode.MOTION_EXTRAPOLATION_AND_REGISTRATION) \
             and prev_keypoints is not None and not first_frame:
         with span("slam.ego"):
-            trel = _ego_registration(kps, prev_keypoints, trel, cfg, sync_free, mesh)
+            trel, ego_counts = _ego_registration(kps, prev_keypoints, trel, cfg, sync_free,
+                                                 mesh)
+    ego_trel = trel
 
     loc_prior = se3.jcompose_pose(inp.prev_pose, trel)
     new_cache = list(inp.submap_cache)
@@ -408,7 +418,8 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
             for t in types:
                 new_maps[int(t)] = _select(do_update, update(int(t)), maps[int(t)])
         packed = pack_scalars(pose, trel, failed, total, counts, cov, offset, do_update,
-                              overlap, _overflow(new_maps, dev), kp_counts)
+                              overlap, _overflow(new_maps, dev), kp_counts, ego_trel,
+                              ego_counts)
         cache_stale = torch.ones((), dtype=torch.bool, device=dev) if first_frame \
             else do_update
     else:
@@ -417,7 +428,8 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
         # map_overflow is the cumulative count before this frame's insert; a
         # keyframe re-reads it after the insert.
         packed = pack_scalars(pose, trel, failed, total, counts, cov, offset, do_update,
-                              overlap, _overflow(maps, dev), kp_counts)
+                              overlap, _overflow(maps, dev), kp_counts, ego_trel,
+                              ego_counts)
         with span("slam.sync"):
             packed = packed.cpu().numpy()
         updated = bool(packed[17] > 0.5)
@@ -443,27 +455,35 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
 def _ego_registration(kps, prev_keypoints, trel_prior, cfg: SlamConfig, gated: bool,
                       mesh=None):
     """Scan-to-scan ICP of this sweep's edges and planes against the
-    previous sweep's (JAX pipeline.py:277-306): the refined ego-motion, or
-    the prior where it fails (an empty previous set fails it). The index is
-    the previous keypoints in extraction order, searched by the exact scan
-    (no prune radius): at most 4096 slots, and the per-ring filter's `near`
+    previous sweep's (JAX pipeline.py:277-306). Returns the refined
+    ego-motion, or the prior where the ICP fails (an empty previous set
+    fails it), and (2,) int32 device counts: the rounds begun with the gate
+    open and their LM trips begun before convergence. The index is the
+    previous keypoints in extraction order, searched by the exact scan (no
+    prune radius): at most 4096 slots, and the per-ring filter's `near`
     gate, like the RANSAC one, reads only the selected neighbours. With
     `mesh` each rank matches its slice of this sweep's keypoints against
-    all of the previous sweep's (replicated)."""
+    all of the previous sweep's (replicated). On CUDA the stage lies
+    between the marker kernels `slam_mark_ego_begin` and `slam_mark_ego_end`
+    (utils/timer.device_mark). Its plain float64 reference is
+    `reference/ego_registration.py`."""
     ego_types = tuple(t for t in (Keypoint.EDGE, Keypoint.PLANE) if cfg.use_keypoints(t))
     index = [None, None, None]
     for t in ego_types:
         pk = prev_keypoints[int(t)]
         index[int(t)] = voxel_map.SubmapView(xyz=pk.xyz, ring=pk.ring, valid=pk.valid)
     sl = (lambda a: a) if mesh is None else mesh.shard_slice
+    device_mark("ego_begin", trel_prior.device)
     ego = icp.icp_register(
         icp.ICPInputs(kp_xyz=tuple(sl(k.xyz) for k in kps),
                       kp_valid=tuple(sl(k.valid) for k in kps), index=tuple(index)),
         types=ego_types, pose0=trel_prior, params=cfg.ego_matching,
         solver_cfg=cfg.solver, icp_iters=cfg.ego_motion_icp_max_iter,
         lm_max_iter=cfg.ego_motion_lm_max_iter,
-        min_matches=cfg.min_nb_matched_keypoints, gated=gated, mesh=mesh)
-    return torch.where(ego.failed, trel_prior, ego.pose)
+        min_matches=cfg.min_nb_matched_keypoints, gated=gated, mesh=mesh, count=True)
+    device_mark("ego_end", trel_prior.device)
+    return (torch.where(ego.failed, trel_prior, ego.pose),
+            torch.stack([ego.rounds, ego.lm_steps]))
 
 
 def _time_range(kps, types, device):
@@ -550,10 +570,10 @@ class StreamState(NamedTuple):
 def process_frame_stream(ri, state: StreamState, stamp, az_res, cfg: SlamConfig,
                          map_cfgs: tuple, first_frame: bool, extras=(), mesh=None,
                          shard_maps: bool = False, shard_extraction: bool = False):
-    """One chained streaming step: (state', packed (67,), kps_flat — one
-    (7K+1,) log buffer per type, frame.flatten_keypoints).
+    """One chained streaming step: (state', packed (PACKED_LEN + 3,),
+    kps_flat — one (7K+1,) log buffer per type, frame.flatten_keypoints).
 
-    packed = pack_scalars (64) + origin_vox after this frame (3); its poses
+    packed = pack_scalars + origin_vox after this frame (3); its poses
     are relative to the origin before this frame's roll. `stamp` and
     `az_res` are () float32 device tensors; `extras` the sweep's sensor
     residual blocks, as device tensors. On a mesh the state's maps are
@@ -630,7 +650,7 @@ def process_stream_window(ri_stack, state: StreamState, stamps, az_res,
                           shard_extraction: bool = False):
     """W chained streaming steps over a leading-axis-W stack of sweeps
     (`frame.stack_range_images`), the exact per-frame step each time — the
-    JAX package's `lax.scan` as a loop. Returns (state', packed (W, 67),
+    JAX package's `lax.scan` as a loop. Returns (state', packed (W, PACKED_LEN + 3),
     kps_flat — per type (W, 7K+1))."""
     packed, kps_flat = [], []
     for w in range(stamps.shape[0]):

@@ -147,13 +147,16 @@ class LMResult(NamedTuple):
     n_success: torch.Tensor   # () int32 — accepted steps incl. the initial eval
     cost: torch.Tensor        # () final robust cost
     H: torch.Tensor           # (6, 6) robust GN Hessian at the solution
+    trips: object = None      # () int32 trips begun before convergence (count_trips)
 
 
 def robust_lm(blocks: Sequence[Matches], pose0, saturation, cfg: SolverConfig,
-              lm_max_iter: int, extras=(), mesh=None) -> LMResult:
+              lm_max_iter: int, extras=(), mesh=None, count_trips: bool = False) -> LMResult:
     """LM minimization of the robustified match cost, plus the sensor
     blocks `extras`, starting at pose0. `mesh`: the blocks are this rank's
-    share of the matches (see `_evaluate`); every rank steps the same pose."""
+    share of the matches (see `_evaluate`); every rank steps the same pose.
+    `count_trips`: also count, on the device, the trips that began before
+    the solve converged (`LMResult.trips`, at most `lm_max_iter`)."""
     b = _block(blocks[0]) if len(blocks) == 1 else _Block(
         *(torch.cat(parts) for parts in zip(*(_block(m) for m in blocks))))
     dev = pose0.device
@@ -167,7 +170,9 @@ def robust_lm(blocks: Sequence[Matches], pose0, saturation, cfg: SolverConfig,
         # x, y, yaw free; z, roll, pitch held (filled in on the device)
         free = torch.ones(6, dtype=pose0.dtype, device=dev)
         free[2:5] = 0.0
+    done_at_start = []
     for _ in range(lm_max_iter):
+        done_at_start.append(done)
         D = torch.clamp(torch.diagonal(H), min=1e-12)
         Hd = H + lam * torch.diag(D)
         # solve_ex: no error check, hence no host sync; a singular system
@@ -190,7 +195,11 @@ def robust_lm(blocks: Sequence[Matches], pose0, saturation, cfg: SolverConfig,
                                       torch.clamp(lam * 4.0, max=1e12)))
         nsucc = nsucc + accept.to(torch.int32)
         done = done | small | (~accept & ~done & (lam >= 1e10))
-    return LMResult(pose=pose, n_success=nsucc, cost=cost, H=H)
+    trips = None
+    if count_trips:   # done_at_start[0] is the initial, unconverged flag
+        trips = lm_max_iter - torch.stack(done_at_start).sum(dtype=torch.int32) \
+            if done_at_start else torch.zeros((), dtype=torch.int32, device=dev)
+    return LMResult(pose=pose, n_success=nsucc, cost=cost, H=H, trips=trips)
 
 
 def pose_covariance(H):

@@ -467,7 +467,7 @@ class StreamGraph(_Replayed):
     def eager_step(self, inp, stamp: float, first_frame: bool, extras=()):
         """One step outside the graph (a segment's first sweep on its
         per-sweep wire, or an acquisition's merged keypoints; `extras` its
-        sensor blocks as device tensors). Returns (packed (67,), kps_flat)."""
+        sensor blocks as device tensors). Returns (packed (PACKED_LEN + 3,), kps_flat)."""
         stamp_t = torch.full((), stamp, dtype=torch.float32, device=self.device)
         new, packed, kps_flat = self._step_fn(
             inp, self.state, stamp_t, self.az, self.cfg, self.map_cfgs, first_frame, extras)
@@ -476,7 +476,7 @@ class StreamGraph(_Replayed):
 
     def run(self, records: torch.Tensor):
         """Step every record of a (n, nbytes) uint8 device window in order.
-        Returns (packed (n, 67), kps_flat — per type (n, 7K+1))."""
+        Returns (packed (n, PACKED_LEN + 3), kps_flat — per type (n, 7K+1))."""
         n = records.shape[0]
         packed_out, kps_out = None, None
         for w in range(n):
@@ -494,7 +494,7 @@ class StreamGraph(_Replayed):
 
     def step(self):
         """Step the record already written into `record` (a KeypointRecord's
-        `write`). Returns copies of (packed (67,), kps_flat)."""
+        `write`). Returns copies of (packed (PACKED_LEN + 3,), kps_flat)."""
         packed, kps_flat = self._step()
         return packed.clone(), tuple(k.clone() for k in kps_flat)
 

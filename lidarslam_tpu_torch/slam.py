@@ -269,6 +269,14 @@ class Slam:
         self.Tworld = np.eye(4)
         self.PreviousTworld = np.eye(4)
         self.Trelative = np.eye(4)
+        # the last sweep's ego-motion registration (xyzrpy, float64): the
+        # prior the last add_frame gave the step, the estimate it returned
+        # (the prior where the stage did not run or failed), and its device
+        # counts of open rounds and live LM trips
+        self.ego_prior = np.zeros(6)
+        self.ego_motion = np.zeros(6)
+        self.ego_rounds = 0
+        self.ego_lm_steps = 0
         self.kf_last_pose = np.eye(4)
         self.kf_counter = 0
         self.covariance = np.zeros((6, 6))
@@ -846,6 +854,7 @@ class Slam:
                 self.Tworld = Tnew
                 self.Trelative = se3.pose_to_hmat(u["trel"])
                 self.covariance = u["cov"]
+                self._note_ego(u)
                 self.failure = u["failed"]
                 self.total_matched_keypoints = u["total"]
                 self.match_counts = u["counts"]
@@ -918,7 +927,8 @@ class Slam:
         kf_rel[:3, 3] -= self.map_origin
         t_prev = self.log_trajectory[-1]["time"] if self.log_trajectory else stamp
         extras = self._stream_extras(stamp)   # Slam::ComputeSensorConstraints
-        return (se3.hmat_to_pose(trel_prior), se3.hmat_to_pose(prev_rel),
+        self.ego_prior = se3.hmat_to_pose(trel_prior)
+        return (self.ego_prior, se3.hmat_to_pose(prev_rel),
                 se3.hmat_to_pose(kf_rel), t_prev, extras)
 
     def _make_inputs(self, stamp) -> pipeline.FrameInputs:
@@ -967,6 +977,7 @@ class Slam:
         self.Tworld = Tnew
         self.Trelative = se3.pose_to_hmat(u["trel"])
         self.covariance = u["cov"]
+        self._note_ego(u)
         if u["is_kf"]:
             self.kf_counter += 1
             self.kf_last_pose = self.Tworld.copy()
@@ -995,6 +1006,24 @@ class Slam:
         }
         self._emit_output(stamp, ret, u["is_kf"], self.current_keypoints)
         return ret
+
+    def _note_ego(self, u):
+        """Keep a sweep's ego-motion registration from its packed scalars
+        `u`. With registration configured, its device counts also go into
+        the trace, read by no host sync of their own: one `slam.ego.counts`
+        span holding a `slam.ego.round` span per open round and a
+        `slam.ego.lm_step` span per live LM trip."""
+        self.ego_motion = u["ego_trel"]
+        self.ego_rounds, self.ego_lm_steps = u["ego_rounds"], u["ego_lm_steps"]
+        if self.cfg.ego_motion_mode not in (
+                EgoMotionMode.REGISTRATION, EgoMotionMode.MOTION_EXTRAPOLATION_AND_REGISTRATION):
+            return
+        with span("slam.ego.counts"):
+            for name, n in (("slam.ego.round", self.ego_rounds),
+                            ("slam.ego.lm_step", self.ego_lm_steps)):
+                for _ in range(n):
+                    with span(name):
+                        pass
 
     def _update_map_overflow(self, overflow):
         """Track map leaves dropped at capacity and warn when it grows."""
@@ -1549,7 +1578,11 @@ class Slam:
         upload and graph replays) and `slam.step` (eager steps); and
         `slam.sync` around every host read of a device result and every
         blocking copy from pageable host memory (where the host waits on
-        the device)."""
+        the device). With ego-motion registration, each sweep's device
+        counts of its open rounds and live LM trips arrive as zero-length
+        spans (`_note_ego`), and on a GPU the device trace holds the
+        marker kernels `slam_mark_ego_begin` / `slam_mark_ego_end` at the
+        ends of the stage."""
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]

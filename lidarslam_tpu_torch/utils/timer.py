@@ -18,6 +18,13 @@ brackets one stage of the port's per-sweep path (`slam.add_frame`,
 Spans add no device synchronization: a stage's time is the host's time in
 it, waiting on the device only where the stage itself reads a result
 (`slam.sync`).
+
+A replayed CUDA graph is one host call, so host spans cannot split its
+device time. `device_mark(name, device)` launches on a CUDA device the
+empty kernel `slam_mark_<name>` (`ops/cuda_knn.mark`), which a graph
+captures like any other kernel and a device trace names where it ran; on
+the CPU it does nothing. The port marks the ends of the ego-motion
+registration (`ego_begin`, `ego_end`).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import time
 from collections import defaultdict
 
+import torch
 from torch._C._profiler import _RecordFunctionFast
 
 _starts: dict = {}
@@ -82,6 +90,15 @@ def span(name: str):
     timed as well while the timers are on. Off, it costs one flag test and
     the record's no-op."""
     return _TimedSpan(name) if _on else _RecordFunctionFast(name)
+
+
+def device_mark(name: str, device) -> None:
+    """The device-side marker `slam_mark_<name>` on `device`'s current
+    stream (a no-op off CUDA): always on, no work, no synchronization."""
+    if torch.device(device).type == "cuda":
+        from lidarslam_tpu_torch.ops import cuda_knn
+
+        cuda_knn.mark(name, device)
 
 
 class _TimedSpan:

@@ -621,20 +621,28 @@ def _same_sweep(replay, eager, a, b):
 
 
 @pytest.mark.cuda
-def test_cuda_add_frame_replays_the_live_graph(cuda):
+@pytest.mark.parametrize("ego", ["MOTION_EXTRAPOLATION", "MOTION_EXTRAPOLATION_AND_REGISTRATION"])
+def test_cuda_add_frame_replays_the_live_graph(cuda, ego):
     """add_frame replays its captured step after the first sweep and the
     warm-up steps, and holds to the eager sync path on the card: poses
     within 1e-5 m, the same keyframes and match counts (REFINED
     undistortion on distorted sweeps); the maps, keypoints and debug
-    arrays read the same."""
-    from lidarslam_tpu_torch.config import UndistortionMode
+    arrays read the same. With scan-to-scan ego-motion registration the
+    graph holds the stage too: its estimate within 1e-5 m and its open
+    rounds the same on both paths."""
+    from lidarslam_tpu_torch.config import EgoMotionMode, UndistortionMode
 
-    cfg = _small_stream_cfg().replace(undistortion=UndistortionMode.REFINED)
+    cfg = _small_stream_cfg().replace(undistortion=UndistortionMode.REFINED,
+                                      ego_motion_mode=EgoMotionMode[ego])
+    registers = cfg.ego_motion_mode == EgoMotionMode.MOTION_EXTRAPOLATION_AND_REGISTRATION
     frames = synthetic.generate_sequence(
         n_frames=30, motion_distortion=True, sensor=synthetic.SensorModel(range_noise=0.005))
     replay, eager = _live_pair(cfg, cuda)
-    for f in frames:
+    for i, f in enumerate(frames):
         _same_sweep(replay, eager, replay.add_frame(f), eager.add_frame(f))
+        assert np.linalg.norm(replay.ego_motion[:3] - eager.ego_motion[:3]) < 1e-5
+        assert replay.ego_rounds == eager.ego_rounds
+        assert (replay.ego_rounds >= 1) == (registers and i > 0)
     assert replay.live_replays == len(frames) - (1 + stream_graph.WARMUP_STEPS)
     assert replay._frame_graph.graph is not None
     assert eager._frame_graph is None and eager.live_replays == 0

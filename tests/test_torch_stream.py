@@ -199,8 +199,10 @@ def test_stream_state_carry_steps_like_jax(runs):
     assert dt < 5e-4 and dr < 0.01, (dt, dr)
     assert t["total"] == pytest.approx(j["total"], rel=0.01)
     assert t["failed"] == j["failed"] is False
-    np.testing.assert_array_equal(packed.numpy()[64:], runs["carry_packed"][64:])
-    assert packed.shape == (67,) and len(kps_flat) == 3
+    # the origin after the frame follows the packed scalars (JAX's 64, the
+    # port's PACKED_LEN with the ego-motion registration's estimate and counts)
+    np.testing.assert_array_equal(packed.numpy()[tpipe.PACKED_LEN:], runs["carry_packed"][64:])
+    assert packed.shape == (tpipe.PACKED_LEN + 3,) and len(kps_flat) == 3
 
 
 # ----------------------------------------------------------------------------
@@ -449,7 +451,7 @@ def test_stream_step_reads_nothing_on_host(runs, monkeypatch):
     _, packed, _ = tpipe.process_frame_stream(flat, st, stamp, az, cfg,
                                               slam._map_cfgs_tuple, False)
     monkeypatch.undo()
-    assert int(tpipe.unpack_scalars(packed.numpy()[:64])["total"]) > 100
+    assert int(tpipe.unpack_scalars(packed.numpy()[:tpipe.PACKED_LEN])["total"]) > 100
 
 
 def test_add_frame_next_frame_prefetch_is_identical(runs):
@@ -477,19 +479,23 @@ def test_stream_unported_options_raise(runs, change):
 
 # the live graph's step (ops/stream_graph.FrameGraph) against add_frame's
 # host-branch step: (undistortion, keyframe thresholds (m, deg), what
-# happens between the sweeps MID and MID + 1)
+# happens between the sweeps MID and MID + 1, scan-to-scan ego-motion
+# registration on)
 _LIVE_MID = 3
 _LIVE_CASES = {
-    "keyframe_every_sweep": ("NONE", (0.0, 0.0), None),
-    "refined_keyframe_every_sweep": ("REFINED", (0.0, 0.0), None),
-    "few_keyframes": ("NONE", (50.0, 180.0), None),
-    "refined_few_keyframes": ("REFINED", (50.0, 180.0), None),
-    "stale_submap_forced": ("NONE", (50.0, 180.0), "stale"),
-    "stream_segment_between": ("REFINED", (0.0, 0.0), "segment"),
+    "keyframe_every_sweep": ("NONE", (0.0, 0.0), None, False),
+    "refined_keyframe_every_sweep": ("REFINED", (0.0, 0.0), None, False),
+    "few_keyframes": ("NONE", (50.0, 180.0), None, False),
+    "refined_few_keyframes": ("REFINED", (50.0, 180.0), None, False),
+    "stale_submap_forced": ("NONE", (50.0, 180.0), "stale", False),
+    "stream_segment_between": ("REFINED", (0.0, 0.0), "segment", False),
+    "ego_refined_keyframe_every_sweep": ("REFINED", (0.0, 0.0), None, True),
+    "ego_stream_segment_between": ("REFINED", (0.0, 0.0), "segment", True),
 }
 
 
-def _live_config(undistortion, kf):
+def _live_config(undistortion, kf, ego=False):
+    from lidarslam_tpu_torch.config import EgoMotionMode as TEgo
     from lidarslam_tpu_torch.config import ExtractorConfig as TExtractor
     from lidarslam_tpu_torch.config import MapConfig as TMap
     from lidarslam_tpu_torch.config import SlamConfig as TConfig
@@ -501,7 +507,9 @@ def _live_config(undistortion, kf):
         plane_map=TMap(leaf_size=0.60, capacity=1 << 13, grid_size=26),
         blob_map=TMap(leaf_size=0.30, capacity=1 << 13, grid_size=26),
         loc_matching=TMatching(reuse_knn=True), undistortion=TUndistortion[undistortion],
-        kf_distance_threshold=kf[0], kf_angle_threshold=kf[1])
+        kf_distance_threshold=kf[0], kf_angle_threshold=kf[1],
+        ego_motion_mode=TEgo.MOTION_EXTRAPOLATION_AND_REGISTRATION if ego
+        else TEgo.MOTION_EXTRAPOLATION)
 
 
 @pytest.mark.parametrize("case", sorted(_LIVE_CASES))
@@ -511,11 +519,14 @@ def test_live_graph_step_equals_host_branches(case, monkeypatch):
     host-branch step, from the same host state every sweep: the same
     packed scalars (the overflow after the insert in both), poses, maps
     and keypoints. Between two sweeps a case forces the submap stale, or
-    runs a stream segment, after which the graph's state is reseeded."""
+    runs a stream segment, after which the graph's state is reseeded. With
+    ego-motion registration the packed scalars carry its estimate and its
+    device counts, the same on both forms; the segment's first sweep
+    registers against empty previous keypoints and keeps its prior."""
     from lidarslam_tpu_torch.io import synthetic as tsyn
 
-    undistortion, kf, event = _LIVE_CASES[case]
-    cfg = _live_config(undistortion, kf)
+    undistortion, kf, event, ego = _LIVE_CASES[case]
+    cfg = _live_config(undistortion, kf, ego)
     frames = tsyn.generate_sequence(n_frames=8, motion_distortion=undistortion != "NONE",
                                     sensor=tsyn.SensorModel(n_azimuth=500))
     monkeypatch.setattr(stream_graph.FrameGraph, "_step", stream_graph.FrameGraph._body)
@@ -529,7 +540,10 @@ def test_live_graph_step_equals_host_branches(case, monkeypatch):
     for s, r in zip(slams, rows):
         s._apply_result = (lambda res, *a, real=s._apply_result, r=r:
                            r.append((res.packed.copy(), res.is_keyframe)) or real(res, *a))
-    kfs = []
+    kfs, ego_counts, ego_notes = [], [], ([], [])
+    for s, notes in zip(slams, ego_notes):
+        s._note_ego = (lambda u, real=s._note_ego, notes=notes:
+                       notes.append((u["ego_rounds"], u["ego_lm_steps"])) or real(u))
     for i, f in enumerate(frames):
         if i == _LIVE_MID + 1 and event == "stale":
             for s in slams:
@@ -538,8 +552,11 @@ def test_live_graph_step_equals_host_branches(case, monkeypatch):
             for s in slams:
                 s.add_frame_async(f)
             if i == _LIVE_MID + 2:
-                for s in slams:
+                for s, notes in zip(slams, ego_notes):
                     s.flush()
+                    # the segment's first sweep registers against empty
+                    # previous keypoints: its one round matches nothing
+                    assert notes[-2:][0][0] == (1 if ego else 0)
             continue
         outs = [s.add_frame(f) for s in slams]
         (pa, kfa), (pb, kfb) = rows[0][-1], rows[1][-1]
@@ -552,6 +569,8 @@ def test_live_graph_step_equals_host_branches(case, monkeypatch):
                 assert torch.equal(a, b)
         kfs.append(bool(kfa))
         assert bool(kfa) == bool(kfb)
+        ego_counts.append((slams[1].ego_rounds, slams[1].ego_lm_steps))
+        assert np.array_equal(slams[0].ego_motion, slams[1].ego_motion)
     graph = slams[1]._frame_graph
     assert graph is not None and slams[1]._device_keypoints is graph.state[1]
     assert all(a is b for a, b in zip((slams[1].maps[k] for k in cfg.used_types),
@@ -565,3 +584,9 @@ def test_live_graph_step_equals_host_branches(case, monkeypatch):
         assert all(kfs)
     else:
         assert not all(kfs[1:])
+    if ego:   # every sweep after the first registers, within its budget
+        assert ego_counts[0] == (0, 0)
+        assert all(1 <= r <= cfg.ego_motion_icp_max_iter
+                   and r <= n <= r * cfg.ego_motion_lm_max_iter for r, n in ego_counts[1:])
+    else:
+        assert set(ego_counts) == {(0, 0)}
