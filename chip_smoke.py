@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. Phases, each printed as it goes:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: compile csrc/knn.cu with nvcc (sm_90a) and the native host
+2. build: compile csrc/knn.cu and csrc/extract.cu with nvcc (sm_90a,
+   one library) and the native host
    ingest (native/*.cpp) with g++ into lidarslam_tpu_torch/_build/ from
    this checkout; a native library that does not load fails the run;
 3. kernel vs plain: the k-NN kernel against its plain PyTorch version at the
@@ -33,6 +34,14 @@ the CUDA toolkit. Phases, each printed as it goes:
    edges also time the unpruned call the localization edges now make
    (wrapper, C launch, replay) on the full and slice-fill maps, against
    their bound: every live query against every valid slot at 9 operations;
+   then the extraction kernel (csrc/extract.cu, `phase_extract`) on one
+   rendered sweep at each of the benchmark's shapes (16 and 64 rings of
+   2,048 slots) under the outdoor preset's extractor: its labels equal to
+   the torch form's and its scores within 1e-5 on the card, the wrapper
+   and its graph replay timed beside the torch form's labelling replayed
+   as one graph, the whole stage with compaction on both, and its bound
+   (`extract_bound_us` at 3.35 TB/s: 38 B a slot for all it writes, 20 B
+   for what the main path reads);
 4. the slice: `Slam(cfg, device="cuda").add_frame` over 30 VLP-16 sweeps at
    the bench configuration, held against the JAX package's trajectory
    (lidarslam_tpu_torch/data/vlp16_bench_ref.npz, made by
@@ -206,6 +215,13 @@ work; the profiler's trace, which can lose records when a frame runs tens
 of thousands of small kernels, must show each k-NN kernel and never more
 often than the device counted it.
 
+The extraction kernel is held the same way on every path of phases 4-11
+(`extract_counted`; in each profiled window, `_readings`): it ran on the
+device once a sweep (twice an acquisition of the rig), each run either a
+wrapper call made eagerly, in a warm-up or into a capture, or a graph
+replaying the call its capture recorded. The counts of each path go into
+the extract entry of the kernels line (`counts_by_path`).
+
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero before printing a result.
 The last line is one JSON object: {"ok": true, "device": {...}}.
@@ -216,6 +232,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -244,6 +261,7 @@ FP32_OPS_PER_S = 33.5e12
 HBM_BYTES_PER_S = 3.35e12
 # the k-NN's kernels (csrc/knn.cu), each launched once per wrapper call
 KNN_KERNELS = ("knn_plan", "knn_prefix", "knn_scan", "knn_merge")  # cuda_knn.KERNELS
+EXTRACT_KERNEL = "extract_rings"    # csrc/extract.cu's kernel, as a trace names it
 # the reference CI's per-pose tolerance (io/csv_log.py) and the simulator
 # ground-truth bounds of tests/test_slam_e2e.py
 REF_TOL_M, REF_TOL_DEG = 0.01, 5.0
@@ -807,6 +825,105 @@ def phase_kernel(frames, card: str):
             "edges_unpruned": unpruned}
 
 
+EXTRACT_SHAPES = ((16, 1800), (64, 2048))  # the benchmark's sweeps: rings, firings
+# the JAX extractor's keypoint sets on `extract_drive` (scripts/make_torch_reference.py
+# --which extract), which tests/test_torch_cuda.py holds the card's extraction to
+EXTRACT_REF_PATH = ROOT / "lidarslam_tpu_torch" / "data" / "extract_ref.npz"
+EXTRACT_SWEEPS = 3
+EXTRACT_AZ = 2 * math.pi / 2048     # rounded to float32 where used
+
+
+def extract_drive(synthetic, rings: int):
+    """The sweeps of EXTRACT_REF_PATH at `rings` x 2,048 firings, from
+    either package's `io.synthetic` (they render the same points)."""
+    return synthetic.generate_sequence(
+        n_frames=EXTRACT_SWEEPS, seed=5, motion_distortion=False,
+        sensor=synthetic.SensorModel(n_rings=rings, n_azimuth=2048, range_noise=0.005))
+
+
+def sweep_sha256(f) -> str:
+    """The sha256 of a sweep's point arrays."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for key in ("xyz", "intensity", "laser_id", "time"):
+        h.update(np.ascontiguousarray(f[key]).tobytes())
+    return h.hexdigest()
+
+
+def extract_bound_us(rings: int, slots: int, debug: bool = True) -> float:
+    """The extraction kernel's bound at 3.35 TB/s: xyz, intensity and
+    validity in (17 B a slot), and out either all it writes, five label
+    grids and four score grids (21 B), or with `debug` False the three
+    label grids that the main path's compaction reads (3 B; the validity
+    and score grids serve only `with_debug`)."""
+    return rings * slots * (17 + (21 if debug else 3)) / 3.35e12 * 1e6
+
+
+def phase_extract(card: str):
+    """The extraction kernel (csrc/extract.cu) alone at the benchmark's two
+    sweep shapes, on one rendered sweep each under the outdoor preset's
+    extractor at 2,048 slots a ring: its labels and scores against the
+    torch form's on the card, then the median of 20 CUDA-event timings of
+    the wrapper and of its graph replay, beside the torch form's labelling
+    replayed as one CUDA graph, the whole stage (labelling and compaction)
+    replayed on both, and the bound. The kernel replaces no TPU kernel: it
+    replaces the XLA-fused jnp stencils of lidarslam_tpu/ops/extractor.py."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lidarslam_tpu_torch.io import synthetic
+    from lidarslam_tpu_torch.io.yaml_config import load_config
+    from lidarslam_tpu_torch.ops import cuda_extract, extractor
+    from lidarslam_tpu_torch.ops.frame import build_range_image
+
+    dev = torch.device("cuda")
+    preset = load_config(ROOT / "configs" / "slam_config_outdoor.yaml").extractor
+    shapes = []
+    for rings, firings in EXTRACT_SHAPES:
+        cfg = dataclasses.replace(preset, n_rings=rings, max_ring_points=2048)
+        f = synthetic.generate_sequence(
+            n_frames=1, seed=11, motion_distortion=False,
+            sensor=synthetic.SensorModel(n_rings=rings, n_azimuth=firings,
+                                         range_noise=0.01))[0]
+        ri = build_range_image(f["xyz"], f["intensity"], f["laser_id"], f["time"],
+                               rings, 2048, device=dev)
+        az = torch.full((), float(np.float32(2 * np.pi / firings)), device=dev)
+        labels, scores = cuda_extract.launch(ri, az, cfg)
+        want = extractor.label_grids(ri, az, cfg)
+        _require(all(torch.equal(a, b) for a, b in zip(labels, want[:5])),
+                 f"[extract] {rings} x 2048: the kernel's labels differ from the torch form's")
+        err = float((scores - torch.stack(want[5:])).abs().max())
+        _require(err <= 1e-5, f"[extract] {rings} x 2048: scores differ by {err}")
+        ms = _median_ms(lambda: cuda_extract.launch(ri, az, cfg))
+        replay_ms = _graph_ms(lambda: cuda_extract.launch(ri, az, cfg))
+        torch_ms = _graph_ms(lambda: extractor.label_grids(ri, az, cfg))
+        stage_ms = _graph_ms(lambda: extractor.extract_keypoints(ri, az, cfg))
+        torch_stage_ms = _graph_ms(lambda: extractor._result(
+            ri, extractor.label_grids(ri, az, cfg), cfg, False))
+        bound_us = extract_bound_us(rings, 2048)
+        main_bound_us = extract_bound_us(rings, 2048, debug=False)
+        rec = {"shape": f"{rings}x2048", "valid": int(ri.valid.sum()),
+               "labels": [int(x.sum()) for x in labels[:3]], "max_abs_err": err,
+               "ms": ms, "replay_ms": replay_ms, "torch_replay_ms": torch_ms,
+               "stage_replay_ms": stage_ms, "torch_stage_replay_ms": torch_stage_ms,
+               "bound_us": bound_us, "main_path_bound_us": main_bound_us}
+        print(f"[extract] {rings} x 2048 ({rec['valid']} valid, edges / planes / blobs "
+              f"{rec['labels']}): labels equal, scores within {err:.2e}; kernel: wrapper "
+              f"{ms:.4f} ms, graph replay {replay_ms:.4f} ms; torch form replayed "
+              f"{torch_ms:.4f} ms; the stage with compaction replayed {stage_ms:.4f} ms "
+              f"(torch form {torch_stage_ms:.4f} ms); bound {bound_us:.2f} us for all it "
+              f"writes ({100 * bound_us / 1000 / replay_ms:.2f}% of it), {main_bound_us:.2f} us "
+              f"for what the main path reads ({100 * main_bound_us / 1000 / replay_ms:.2f}%) "
+              f"({card})", flush=True)
+        shapes.append(rec)
+    return {"shapes": shapes, "max_abs_err": max(r["max_abs_err"] for r in shapes)}
+
+
 def _require(ok, msg):
     """Fail the phase with `msg` unless `ok`."""
     if not ok:
@@ -842,34 +959,40 @@ def _check_trajectory(tag, frames, results, ref, gate_gt=True, tol_m=REF_TOL_M):
     return worst_ref, worst_gt
 
 
-def _profile(fn, n_frames: int):
+def _profile(fn, n_frames: int, sweeps_per_frame: int = 1):
     """torch.profiler over `fn` (which ends in a device sync): the
-    `_readings` of its device work. Device activity only: the host ops'
-    events would double the profiler's own time and no reading uses them."""
+    `_readings` of its device work, whose `n_frames` frames of
+    `sweeps_per_frame` sweeps each ran the extraction kernel once a sweep.
+    Device activity only: the host ops' events would double the profiler's
+    own time and no reading uses them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from lidarslam_tpu_torch.ops import cuda_knn
+    from lidarslam_tpu_torch.ops import cuda_extract, cuda_knn
 
     torch.cuda.synchronize()
     cuda_knn.reset_executions()
+    extracted = cuda_extract.executions()   # read, not reset: `extract_counted` may hold it
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return _readings(prof, n_frames, cuda_knn.executions())
+    return _readings(prof, n_frames, cuda_knn.executions(),
+                     cuda_extract.executions() - extracted, n_frames * sweeps_per_frame)
 
 
-def _readings(source, n_frames: int, executed: dict):
+def _readings(source, n_frames: int, executed: dict, extracted: int, sweeps: int):
     """From a torch.profiler profile or its Chrome trace (utils/profiling.py)
-    and the k-NN kernels' device execution counts over the same work
-    (`cuda_knn.executions`): device busy ms/frame, device kernels/frame
-    (copies and memsets excluded), executions of each k-NN kernel as the
-    kernels counted them (`knn`) and as the trace recorded them
-    (`knn_traced`), and the k-NN kernels' device ms/frame (every device
-    kernel named knn_*). A trace can lose records when the device runs tens
-    of thousands of small kernels a frame, so the exact counts come from
-    the device; the trace must still show each kernel, and never more
-    often than it ran."""
+    and the k-NN and extraction kernels' device execution counts over the
+    same work (`cuda_knn.executions`, `cuda_extract.executions`), in which
+    the extraction kernel ran once in each of `sweeps` sweeps: device busy
+    ms/frame, device kernels/frame (copies and memsets excluded),
+    executions of each k-NN kernel as the kernels counted them (`knn`) and
+    as the trace recorded them (`knn_traced`), the same of the extraction
+    kernel (`extract`, `extract_traced`), and the k-NN kernels' device
+    ms/frame (every device kernel named knn_*). A trace can lose records
+    when the device runs tens of thousands of small kernels a frame, so the
+    exact counts come from the device; the trace must still show each
+    kernel, and never more often than it ran."""
     from lidarslam_tpu_torch.utils import profiling
 
     _, cnt, cat = profiling.op_totals(source)
@@ -882,8 +1005,13 @@ def _readings(source, n_frames: int, executed: dict):
     _require(all(0 < traced[k] <= executed[k] for k in KNN_KERNELS),
              f"the trace's k-NN kernel executions {traced} are not within the "
              f"device's counts {executed}")
+    extract_traced = sum(n for name, n in cnt.items() if EXTRACT_KERNEL in name)
+    _require(extracted == sweeps and 0 < extract_traced <= extracted,
+             f"the extraction kernel ran {extracted} times on the device ({extract_traced} "
+             f"traced) in {sweeps} sweeps")
     return {"busy_ms": busy_ms / n_frames, "kernels": kernels / n_frames,
             "knn": dict(executed), "knn_traced": traced,
+            "extract": extracted, "extract_traced": extract_traced,
             "knn_ms": cat["knn"] / n_frames}
 
 
@@ -963,11 +1091,12 @@ def phase_slice(frames):
     slam = Slam(bench_config(16, 1800), device="cuda")
     cuda_knn.LAUNCHES = 0
     results, wall = [], []
-    for f in frames:
-        t0 = time.perf_counter()
-        results.append(slam.add_frame(f))
-        torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t0)
+    with extract_counted("bench sync", len(frames)) as extracted:
+        for f in frames:
+            t0 = time.perf_counter()
+            results.append(slam.add_frame(f))
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
     launches = cuda_knn.LAUNCHES
 
     worst_ref, worst_gt = _check_trajectory("slice", frames, results, ref)
@@ -983,7 +1112,8 @@ def phase_slice(frames):
     ms_frame = 1000 * statistics.median(wall[1:])
     print(f"[slice] {len(frames)} frames, 0 failed, {launches} kernel "
           f"launches; median {ms_frame:.2f} ms/frame "
-          f"(first frame {1000 * wall[0]:.1f} ms)", flush=True)
+          f"(first frame {1000 * wall[0]:.1f} ms); extraction kernel "
+          f"{_extract_line(extracted)}", flush=True)
     print(f"[slice] min n_matches {min(n_matches)} (JAX reference {min(ref_matches)}); "
           f"max pose divergence from the reference {worst_ref[0]:.3e} m / "
           f"{worst_ref[1]:.3e} deg; from ground truth {worst_gt[0]:.3e} m / "
@@ -1006,7 +1136,8 @@ def phase_slice(frames):
           f"k-NN kernels "
           f"{prof['knn_ms']:.4f} ms/frame ({100 * prof['knn_ms'] / prof['busy_ms']:.2f}% "
           f"of device busy), executions {prof['knn']} (device counts; traced"
-          f" {prof['knn_traced']})", flush=True)
+          f" {prof['knn_traced']}); extraction kernel executions {prof['extract']} (traced "
+          f"{prof['extract_traced']})", flush=True)
     return {"launches": launches, "ms_frame": ms_frame, "results": results, **prof}
 
 
@@ -1031,7 +1162,8 @@ def phase_stream(frames, card: str, sync: dict):
     slam = Slam(cfg, device="cuda")
     cuda_knn.LAUNCHES = 0
     t_all = time.perf_counter()
-    ms_frame, results = _stream_run_ms(slam, frames)
+    with extract_counted("bench stream", len(frames)) as extracted:
+        ms_frame, results = _stream_run_ms(slam, frames)
     wall_all = time.perf_counter() - t_all
     calls = cuda_knn.LAUNCHES
     if slam._graph is None or slam._graph.graph is None:
@@ -1052,8 +1184,8 @@ def phase_stream(frames, card: str, sync: dict):
     print(f"[stream] {len(frames)} frames, 0 failed, {calls} Python k-NN calls "
           f"(first frame, {slam._graph.warmup_steps} warm-up steps, 1 capture); "
           f"{ms_frame:.2f} ms/frame over frames {TIMED.start}-{TIMED.stop - 1} "
-          f"(enqueue + device sync); all 30 frames + flush {1000 * wall_all:.1f} ms",
-          flush=True)
+          f"(enqueue + device sync); all 30 frames + flush {1000 * wall_all:.1f} ms; "
+          f"extraction kernel {_extract_line(extracted)}", flush=True)
     print(f"[stream] min n_matches {min(n_matches)} (JAX reference {min(ref_matches)}); "
           f"max pose divergence from the JAX streaming reference {worst_ref[0]:.3e} m / "
           f"{worst_ref[1]:.3e} deg; from ground truth {worst_gt[0]:.3e} m / "
@@ -1101,7 +1233,8 @@ def phase_stream(frames, card: str, sync: dict):
     print(f"[stream] profiled window of {WINDOW} replays (frames {window.start}-"
           f"{window.stop - 1}): k-NN kernel executions {prof['knn']} (device counts; traced"
           f" {prof['knn_traced']}) (2 per frame "
-          f"each); device busy {prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} "
+          f"each), extraction kernel {prof['extract']} (traced {prof['extract_traced']}); "
+          f"device busy {prof['busy_ms']:.2f} ms/frame, {prof['kernels']:.1f} "
           f"device kernels/frame; k-NN kernels {prof['knn_ms']:.4f} ms/frame "
           f"({100 * prof['knn_ms'] / prof['busy_ms']:.2f}% of device busy)", flush=True)
     print(f"[stream-vs-sync] {card}: stream {ms_frame:.2f} ms/frame, sync "
@@ -1446,7 +1579,8 @@ def phase_full(card: str, frames, ckpt_dir: Path):
             wall.append(time.perf_counter() - t1)
 
     cuda_knn.LAUNCHES = 0
-    _, shapes_run = _record_knn_calls(run_sync, keep_inputs=False)
+    with extract_counted("full sync", len(frames)) as extracted:
+        _, shapes_run = _record_knn_calls(run_sync, keep_inputs=False)
     sync_launches = cuda_knn.LAUNCHES
     if sync_launches != len(shapes_run):
         raise AssertionError(f"[full] {sync_launches} counted k-NN launches, "
@@ -1456,7 +1590,8 @@ def phase_full(card: str, frames, ckpt_dir: Path):
     d_ov = _check_confidence("full sync", results, ref)
     sync_ms = 1000 * statistics.median(wall[1:])
     print(f"[full] sync: {len(frames)} frames, 0 failed, {sync_launches} k-NN launches "
-          f"{sync_by_shape}; median {sync_ms:.2f} ms/frame", flush=True)
+          f"{sync_by_shape}; median {sync_ms:.2f} ms/frame; extraction kernel "
+          f"{_extract_line(extracted)}", flush=True)
     print(f"[full] sync: min n_matches {min(r['n_matches'] for r in results[1:])} (JAX "
           f"{int(ref['n_matches'][1:].min())}); max divergence from JAX {worst_ref[0]:.3e} m "
           f"/ {worst_ref[1]:.3e} deg; overlap within {d_ov:.2e} of JAX's; motion-limit "
@@ -1488,7 +1623,8 @@ def phase_full(card: str, frames, ckpt_dir: Path):
     # ---- add_frame_async + flush
     slam = Slam(cfg, device="cuda")
     cuda_knn.LAUNCHES = 0
-    stream_ms, results = _stream_run_ms(slam, frames)
+    with extract_counted("full stream", len(frames)) as extracted:
+        stream_ms, results = _stream_run_ms(slam, frames)
     calls = cuda_knn.LAUNCHES
     if slam._graph is None or slam._graph.graph is None:
         raise AssertionError("[full] the stream never captured its CUDA graph")
@@ -1500,8 +1636,8 @@ def phase_full(card: str, frames, ckpt_dir: Path):
     d_sov = _check_confidence("full stream", results, sref)
     print(f"[full] stream: {len(frames)} frames, 0 failed, {calls} Python k-NN calls "
           f"({slam._graph.warmup_steps} warm-up steps and 1 capture, {len(FULL_CALLS)} "
-          f"each); {stream_ms:.2f} ms/frame over frames {TIMED.start}-{TIMED.stop - 1}",
-          flush=True)
+          f"each); {stream_ms:.2f} ms/frame over frames {TIMED.start}-{TIMED.stop - 1}; "
+          f"extraction kernel {_extract_line(extracted)}", flush=True)
     print(f"[full] stream: min n_matches {min(r['n_matches'] for r in results[1:])} (JAX "
           f"{int(sref['n_matches'][1:].min())}); max divergence from the JAX stream "
           f"{worst_sref[0]:.3e} m / {worst_sref[1]:.3e} deg; overlap within {d_sov:.2e}; "
@@ -2075,8 +2211,9 @@ def phase_ext(card: str, frames):
 
     # ---- add_frame: the slice's main path, its k-NN launches counted
     cuda_knn.LAUNCHES = 0
-    (results, counts, slam, sync_ms), shapes_run = _record_knn_calls(
-        lambda: _ext_run(cfg, frames, sensors, stream=False), keep_inputs=False)
+    with extract_counted("ext sync", len(frames)) as extracted:
+        (results, counts, slam, sync_ms), shapes_run = _record_knn_calls(
+            lambda: _ext_run(cfg, frames, sensors, stream=False), keep_inputs=False)
     sync_launches = cuda_knn.LAUNCHES
     _require(sync_launches == len(shapes_run) > 0,
              f"[ext] {sync_launches} counted k-NN launches, {len(shapes_run)} seen")
@@ -2086,7 +2223,8 @@ def phase_ext(card: str, frames):
     readings = ext_readings(ext_record(results, counts, slam, frames[-1]["stamp"]), ref)
     _check_ext("ext sync", readings)
     print(f"[ext] sync: {len(frames)} frames, 0 failed, {sync_launches} k-NN launches "
-          f"{sync_by_shape}; median {sync_ms:.2f} ms/frame", flush=True)
+          f"{sync_by_shape}; median {sync_ms:.2f} ms/frame; extraction kernel "
+          f"{_extract_line(extracted)}", flush=True)
     print(f"[ext] sync: {_ext_summary(readings, ref)}; from ground truth "
           f"{worst_gt[0]:.3e} m / {worst_gt[1]:.3e} deg (the JAX reference's own: "
           f"{ref_gt[0]:.3e} m / {ref_gt[1]:.3e} deg)", flush=True)
@@ -2100,7 +2238,8 @@ def phase_ext(card: str, frames):
     # ---- add_frame_async + flush: every sweep carries sensor blocks in its
     # record of the window
     cuda_knn.LAUNCHES = 0
-    results, counts, slam, stream_ms = _ext_run(cfg, frames, sensors, stream=True)
+    with extract_counted("ext stream", len(frames)) as extracted:
+        results, counts, slam, stream_ms = _ext_run(cfg, frames, sensors, stream=True)
     calls = cuda_knn.LAUNCHES
     g = slam._graph
     _require(g is not None and g.graph is not None and g.blocks == (True, True),
@@ -2114,7 +2253,8 @@ def phase_ext(card: str, frames):
     _check_ext("ext stream", sreadings)
     print(f"[ext] stream: {len(frames)} frames, 0 failed, {calls} Python k-NN calls "
           f"({g.warmup_steps} warm-up steps and 1 capture, {len(EXT_CALLS)} each); "
-          f"{stream_ms:.2f} ms/frame over frames {TIMED.start}-{TIMED.stop - 1}", flush=True)
+          f"{stream_ms:.2f} ms/frame over frames {TIMED.start}-{TIMED.stop - 1}; extraction "
+          f"kernel {_extract_line(extracted)}", flush=True)
     print(f"[ext] stream: {_ext_summary(sreadings, sref)}; from ground truth "
           f"{worst_sgt[0]:.3e} m / {worst_sgt[1]:.3e} deg", flush=True)
 
@@ -2262,7 +2402,7 @@ def phase_rig(card: str):
     import torch
 
     from lidarslam_tpu_torch import Slam
-    from lidarslam_tpu_torch.ops import cuda_knn, pipeline
+    from lidarslam_tpu_torch.ops import cuda_extract, cuda_knn, pipeline
     from lidarslam_tpu_torch.utils import profiling
 
     cfg = rig_config()
@@ -2291,7 +2431,8 @@ def phase_rig(card: str):
             counts.append(slam.match_counts.copy())
 
     cuda_knn.LAUNCHES = 0
-    _, shapes_run = _record_knn_calls(run_sync, keep_inputs=False)
+    with extract_counted("rig sync", 2 * len(acq)) as extracted:
+        _, shapes_run = _record_knn_calls(run_sync, keep_inputs=False)
     sync_launches = cuda_knn.LAUNCHES
     _require(sync_launches == len(shapes_run) > 0,
              f"[rig] {sync_launches} counted k-NN launches, {len(shapes_run)} seen")
@@ -2304,8 +2445,8 @@ def phase_rig(card: str):
     print(f"[rig] sync: {len(acq)} acquisitions, 0 failed, {sync_launches} k-NN launches "
           f"{dict(sorted(collections.Counter(shapes_run).items()))}; median {sync_ms:.2f} "
           f"ms/acquisition; merged keypoints at frame {len(acq)}: "
-          f"{[int(k.count) for k in merged]} of {[k.xyz.shape[0] for k in merged]}",
-          flush=True)
+          f"{[int(k.count) for k in merged]} of {[k.xyz.shape[0] for k in merged]}; "
+          f"extraction kernel {_extract_line(extracted)}", flush=True)
     print(f"[rig] sync: max divergence from JAX {worst_ref[0]:.3e} m / {worst_ref[1]:.3e} "
           f"deg; n_matches (total and per type) within 1% on every frame, min "
           f"{min(r['n_matches'] for r in results[1:])} (JAX {int(ref['n_matches'][1:].min())})"
@@ -2314,7 +2455,8 @@ def phase_rig(card: str):
     for a in acq[:PROFILED.start]:
         slam.add_frames(a)
     profiled = range(PROFILED.start, PROFILED.start + RIG_PROFILED)
-    sync_prof = _profile(lambda: [slam.add_frames(acq[i]) for i in profiled], RIG_PROFILED)
+    sync_prof = _profile(lambda: [slam.add_frames(acq[i]) for i in profiled], RIG_PROFILED,
+                         sweeps_per_frame=2)
     print(f"[rig] sync profiled acquisitions {profiled.start}-{profiled.stop - 1}: device "
           f"busy {sync_prof['busy_ms']:.2f} ms/acquisition, {sync_prof['kernels']:.1f} "
           f"device kernels/acquisition; [time] {time.perf_counter() - t0:.1f} s into the "
@@ -2329,7 +2471,8 @@ def phase_rig(card: str):
         real(stamp)
     slam._log_state = log_state
     cuda_knn.LAUNCHES = 0
-    stream_ms, results = _stream_run_ms(slam, acq, slam.add_frames_async)
+    with extract_counted("rig stream", 2 * len(acq)) as stream_extracted:
+        stream_ms, results = _stream_run_ms(slam, acq, slam.add_frames_async)
     calls = cuda_knn.LAUNCHES
     rig = slam._rig_graph
     _require(rig is not None and rig.graph is not None and rig.state is slam._graph.state,
@@ -2351,7 +2494,8 @@ def phase_rig(card: str):
           f"({rig.warmup_steps} warm-up steps and 1 capture, "
           f"{len(RIG_CALLS)} each); {stream_ms:.2f} ms/acquisition over {TIMED.start}-"
           f"{TIMED.stop - 1}; max divergence from the JAX stream {worst_sref[0]:.3e} m / "
-          f"{worst_sref[1]:.3e} deg; n_matches within 1% (total and per type)", flush=True)
+          f"{worst_sref[1]:.3e} deg; n_matches within 1% (total and per type); extraction "
+          f"kernel {_extract_line(stream_extracted)}", flush=True)
 
     # acquisitions 0-16 through the API, 17 by hand: extraction and merge
     # eagerly, then the step eagerly under sync-debug "error" against one
@@ -2392,12 +2536,14 @@ def phase_rig(card: str):
     with tempfile.TemporaryDirectory() as d:
         torch.cuda.synchronize()
         cuda_knn.reset_executions()
+        cuda_extract.reset_executions()
         slam.start_profiling(d)
         for i in window:
             slam.add_frames_async(acq[i])
         path = slam.stop_profiling()
         _require(profiling.find_trace(d) == path, "[rig] stop_profiling wrote no trace")
-        prof = _readings(path, RIG_PROFILED, cuda_knn.executions())
+        prof = _readings(path, RIG_PROFILED, cuda_knn.executions(),
+                         cuda_extract.executions(), 2 * RIG_PROFILED)
     slam.flush()
     _require(all(n == len(RIG_CALLS) * RIG_PROFILED for n in prof["knn"].values()),
              f"[rig] k-NN executions {prof['knn']} in {RIG_PROFILED} acquisitions (expected "
@@ -2405,7 +2551,8 @@ def phase_rig(card: str):
     print(f"[rig] profiled {RIG_PROFILED} acquisitions ({window.start}-{window.stop - 1}) through "
           f"Slam.start_profiling / stop_profiling, read from the trace file: k-NN "
           f"executions {prof['knn']} (device counts; traced"
-          f" {prof['knn_traced']}) ({len(RIG_CALLS)} per acquisition each); device busy "
+          f" {prof['knn_traced']}) ({len(RIG_CALLS)} per acquisition each), extraction "
+          f"kernel {prof['extract']} (traced {prof['extract_traced']}); device busy "
           f"{prof['busy_ms']:.2f} ms/acquisition, {prof['kernels']:.1f} device kernels/"
           f"acquisition (a replay per device's extraction, the merge, a replay of the "
           f"step); "
@@ -2466,28 +2613,29 @@ class GraphSteps:
     whether the step was a
     warm-up, the capture or a replay, the thread it ran in (by name: the
     runtime reuses a finished thread's ident, never its name), and the
-    k-NN wrapper calls made during it (a capture's are the calls its
-    graph replays)."""
+    k-NN and extraction wrapper calls made during it (a capture's are the
+    calls its graph replays)."""
 
     def __init__(self):
-        self.events = []        # (id(graph), kind, thread name, wrapper calls)
+        # (id(graph), kind, thread name, k-NN wrapper calls, extraction wrapper calls)
+        self.events = []
 
     def __enter__(self):
         import threading
 
-        from lidarslam_tpu_torch.ops import cuda_knn, stream_graph
+        from lidarslam_tpu_torch.ops import cuda_extract, cuda_knn, stream_graph
 
         step = self._step = stream_graph._Replayed._step
         events = self.events
 
         def recorded(graph):
             captured = graph.graph is not None
-            before = cuda_knn.LAUNCHES
+            before = cuda_knn.LAUNCHES, cuda_extract.LAUNCHES
             out = step(graph)
             kind = "replay" if captured else ("capture" if graph.graph is not None
                                               else "warm-up")
             events.append((id(graph), kind, threading.current_thread().name,
-                           cuda_knn.LAUNCHES - before))
+                           cuda_knn.LAUNCHES - before[0], cuda_extract.LAUNCHES - before[1]))
             return out
 
         stream_graph._Replayed._step = recorded
@@ -2498,12 +2646,48 @@ class GraphSteps:
 
         stream_graph._Replayed._step = self._step
 
-    def replayed_calls(self) -> int:
-        """k-NN calls the replays ran: each replays the calls its capture
-        recorded (the capture itself replays once, its calls counted as
-        wrapper calls)."""
-        calls = {g: n for g, kind, _, n in self.events if kind == "capture"}
-        return sum(calls[g] for g, kind, _, _ in self.events if kind == "replay")
+    def replayed_calls(self, kernel: str = "knn") -> int:
+        """Calls of the k-NN (`kernel` "knn") or extraction ("extract")
+        kernel the replays ran: each replays the calls its capture recorded
+        (the capture itself replays once, its calls counted as wrapper
+        calls)."""
+        col = {"knn": 3, "extract": 4}[kernel]
+        calls = {e[0]: e[col] for e in self.events if e[1] == "capture"}
+        return sum(calls[e[0]] for e in self.events if e[1] == "replay")
+
+
+EXTRACT_COUNTS = {}     # path -> the extraction kernel's counts over it (`extract_counted`)
+
+
+@contextlib.contextmanager
+def extract_counted(tag, sweeps, device="cuda"):
+    """Hold the extraction kernel over the block, which feeds `sweeps`
+    sweeps from a new Slam: it ran on `device` once per sweep, each run
+    either a wrapper call made outside a graph (eagerly, in a warm-up or
+    into a capture) or a graph replaying the call its capture recorded
+    (`GraphSteps`). The counts (wrapper calls, replayed calls, device
+    executions, sweeps) fill the yielded dict and EXTRACT_COUNTS[tag]."""
+    import torch
+
+    from lidarslam_tpu_torch.ops import cuda_extract
+
+    torch.cuda.synchronize(device)
+    cuda_extract.reset_executions(device)
+    cuda_extract.LAUNCHES = 0
+    n = {}
+    with GraphSteps() as steps:
+        yield n
+    n.update(calls=cuda_extract.LAUNCHES, replayed=steps.replayed_calls("extract"),
+             executions=cuda_extract.executions(device), sweeps=sweeps)
+    _require(n["calls"] > 0 and n["executions"] == n["calls"] + n["replayed"] == sweeps,
+             f"[{tag}] the extraction kernel: {n['calls']} wrapper calls + {n['replayed']} "
+             f"replayed, {n['executions']} device executions for {sweeps} sweeps")
+    EXTRACT_COUNTS[tag] = dict(n)
+
+
+def _extract_line(n) -> str:
+    return (f"{n['calls']} wrapper calls + {n['replayed']} replayed = {n['executions']} "
+            f"device executions in {n['sweeps']} sweeps")
 
 
 def _knn_counts(run):
@@ -2532,28 +2716,34 @@ def _hold_executions(tag, calls, executed, replayed=0):
 
 def counted_cli(argv) -> int:
     """`lidarslam_tpu_torch.cli.main(argv)`, what `python -m
-    lidarslam_tpu_torch.cli` runs, in this process, with the k-NN counters
-    set to 0 before it and written after it, as JSON, to the file named by
-    the environment's KNN_COUNTS (wrapper calls, device executions, and the
-    calls the stream's graph replays ran)."""
+    lidarslam_tpu_torch.cli` runs, in this process, with the k-NN and
+    extraction counters set to 0 before it and written after it, as JSON,
+    to the file named by the environment's KNN_COUNTS (wrapper calls,
+    device executions, and the calls the stream's graph replays ran; the
+    extraction kernel's under "extract")."""
     import os
 
     from lidarslam_tpu_torch import cli
-    from lidarslam_tpu_torch.ops import cuda_knn
+    from lidarslam_tpu_torch.ops import cuda_extract, cuda_knn
 
     cuda_knn.reset_executions()
-    cuda_knn.LAUNCHES = 0
+    cuda_extract.reset_executions()
+    cuda_knn.LAUNCHES = cuda_extract.LAUNCHES = 0
     with GraphSteps() as steps:
         rc = cli.main(argv)
     Path(os.environ["KNN_COUNTS"]).write_text(json.dumps({
         "calls": cuda_knn.LAUNCHES, "executions": cuda_knn.executions(),
-        "replayed": steps.replayed_calls()}))
+        "replayed": steps.replayed_calls(),
+        "extract": {"calls": cuda_extract.LAUNCHES, "replayed": steps.replayed_calls("extract"),
+                    "executions": cuda_extract.executions()}}))
     return rc
 
 
-def _cli_process(tag, argv, counts: Path):
-    """One CLI command in its own process on the card: its JSON last line
-    and its k-NN counts, held as `_hold_executions` holds them."""
+def _cli_process(tag, argv, counts: Path, sweeps: int):
+    """One CLI command over `sweeps` sweeps in its own process on the card:
+    its JSON last line and its k-NN counts, held as `_hold_executions`
+    holds them, and the extraction kernel's, as `extract_counted` holds
+    them."""
     import os
 
     code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
@@ -2567,6 +2757,10 @@ def _cli_process(tag, argv, counts: Path):
              f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
     n = json.loads(counts.read_text())
     _hold_executions(tag, n["calls"], n["executions"], n["replayed"])
+    x = {**n["extract"], "sweeps": sweeps}
+    _require(x["calls"] > 0 and x["executions"] == x["calls"] + x["replayed"] == sweeps,
+             f"[{tag}] the extraction kernel: {_extract_line(x)}")
+    EXTRACT_COUNTS[tag] = x
     return json.loads(r.stdout.strip().splitlines()[-1]), n, wall
 
 
@@ -2785,7 +2979,7 @@ def phase_frontends(card: str, frames):
         info, n, wall = _cli_process(
             "cli run", ["run", "--config", str(CLI_CONFIG), "--pcd-dir", str(tmp / "pcd"),
                         "--out", str(out), "--log-dir", str(out / "log"), "--aggregate",
-                        "--vtp", "--save-maps"], tmp / "sync_counts.json")
+                        "--vtp", "--save-maps"], tmp / "sync_counts.json", len(pcds))
         launches["cli run (sync)"] = n["calls"]
         times["cli_sync_ms"] = info["mean_frame_ms"]
         times["cli_sync_wall_s"] = wall
@@ -2832,7 +3026,7 @@ def phase_frontends(card: str, frames):
         finfo, fn, fwall = _cli_process(
             "cli run --follow", ["run", "--config", str(CLI_CONFIG), "--pcd-dir",
                                  str(tmp / "pcd"), "--out", str(fol), "--follow"],
-            tmp / "follow_counts.json")
+            tmp / "follow_counts.json", len(pcds))
         launches["cli run --follow (Python calls)"] = fn["calls"]
         times["cli_follow_ms"] = finfo["mean_frame_ms"]
         fcmp = _check_cli_run("cli run --follow", fol, ref, "follow", tmp / "ref_follow")
@@ -2853,8 +3047,9 @@ def phase_frontends(card: str, frames):
         agg_err = float(np.abs(off["xyz"].astype(np.float64) - agg["xyz"]).max())
         _require(agg_err <= CLI_AGG_M and np.array_equal(off["label"], agg["label"]),
                  f"[cli] aggregate {agg_err:.3e} m from the run's aggregated.pcd")
-        _, ext = _cli_main(["extract", "--config", str(CLI_CONFIG), "--pcd-dir",
-                            str(tmp / "first"), "--out", str(tmp / "ext"), "--blobs"])
+        with extract_counted("cli extract", CLI_EXTRACT):
+            _, ext = _cli_main(["extract", "--config", str(CLI_CONFIG), "--pcd-dir",
+                                str(tmp / "first"), "--out", str(tmp / "ext"), "--blobs"])
         summary = json.loads((tmp / "ext" / "extraction.json").read_text())
         counts = np.asarray([[s["edge"], s["plane"], s["blob"]] for s in summary])
         az = np.asarray([s["azimuthal_resolution"] for s in summary])
@@ -2916,7 +3111,7 @@ def phase_frontends(card: str, frames):
 
     # ---- the server: the stream across two clients
     main_thread = threading.current_thread().name
-    with GraphSteps() as steps:
+    with extract_counted("server stream", len(frames)), GraphSteps() as steps:
         (poses_a, poses_b, plane_map, n_a, server_ms), calls, executed = _knn_counts(
             lambda: _serve(Slam(cfg, device="cuda"), frames, steps))
     launches["server stream (Python calls)"] = calls
@@ -2930,7 +3125,7 @@ def phase_frontends(card: str, frames):
              and len(threads_a) == len(threads_b) == 1 and threads_a != threads_b
              and main_thread not in threads_a | threads_b,
              f"[server] the graph was not captured in client A's handler thread and "
-             f"replayed in client B's: {[(k, t) for _, k, t, _ in steps.events]}")
+             f"replayed in client B's: {[e[1:3] for e in steps.events]}")
     got = [np.asarray(m["pose"]).reshape(4, 4) for m in poses_a + poses_b]
     _require([m["frame_index"] for m in poses_a + poses_b] == list(range(N_FRAMES)),
              "[server] frame indices")
@@ -2967,7 +3162,7 @@ def phase_frontends(card: str, frames):
             server.server_close()
         return [np.asarray(m["pose"]).reshape(4, 4) for m in msgs]
 
-    with GraphSteps() as steps:
+    with extract_counted("server sync", len(head)), GraphSteps() as steps:
         got, calls, executed = _knn_counts(serve_sync)
     launches["server sync"] = calls
     _hold_executions("server sync", calls, executed, steps.replayed_calls())
@@ -2986,7 +3181,7 @@ def phase_frontends(card: str, frames):
                 stamp=f["stamp"]))
         return ros
 
-    with GraphSteps() as steps:
+    with extract_counted("ros node", len(head)), GraphSteps() as steps:
         ros, calls, executed = _knn_counts(ros_drive)
     launches["ros node"] = calls
     _hold_executions("ros node", calls, executed, steps.replayed_calls())
@@ -3009,7 +3204,7 @@ def phase_frontends(card: str, frames):
             out = core.process(*a)
         return out["trajectory"]
 
-    with GraphSteps() as steps:
+    with extract_counted("paraview core", len(vendor)), GraphSteps() as steps:
         traj, calls, executed = _knn_counts(pv_drive)
     launches["paraview core"] = calls
     _hold_executions("paraview core", calls, executed, steps.replayed_calls())
@@ -3183,7 +3378,8 @@ def _mesh_graph_stream(mesh, name, kw, frames, card):
         if mesh.rank != 0:
             return fn()
         prof.append(_profile(fn, n_tail))
-    ms, outs = _stream_run_ms(slam, frames, tail=tail)
+    with extract_counted(f"{tag} (graph)", len(frames), mesh.device):
+        ms, outs = _stream_run_ms(slam, frames, tail=tail)
     g = slam._graph
     _require(g is not None and g.graph is not None and g.mesh is mesh,
              f"[{tag}] the stream replayed no CUDA graph")
@@ -3202,9 +3398,10 @@ def _mesh_graph_stream(mesh, name, kw, frames, card):
     # the same stream eagerly over its first window: frame 0, then 8 sweeps
     eager = Slam(cfg, mesh=mesh, **kw)
     eager._stream_captured = lambda: False
-    for f in frames[:WINDOW + 1]:
-        eager.add_frame_async(f)
-    outs_eager = eager.flush()
+    with extract_counted(f"{tag} (eager)", WINDOW + 1, mesh.device):
+        for f in frames[:WINDOW + 1]:
+            eager.add_frame_async(f)
+        outs_eager = eager.flush()
     _require(eager._graph is None, f"[{tag}] the eager stream captured a graph")
     return {**_mesh_record(outs, ms), "eager": _mesh_record(outs_eager, None),
             "calls": calls[0], "executions": executed[0], "replay_vs_eager": (dt, dr, total),
@@ -3223,9 +3420,11 @@ def _mesh_rig_stream(mesh, acq, offset):
         slam.set_base_to_lidar_offset(1, offset)
         if not captured:
             slam._stream_captured = lambda: False
-        for a in acq:
-            slam.add_frames_async(a)
-        outs = slam.flush()
+        with extract_counted(f"mesh {mesh.backend} x{mesh.size} rig stream "
+                             f"({'graph' if captured else 'eager'})", 2 * len(acq), mesh.device):
+            for a in acq:
+                slam.add_frames_async(a)
+            outs = slam.flush()
         rig = slam._rig_graph
         _require((rig is not None and rig.graph is not None) == captured,
                  f"[mesh nccl rig stream] captured={captured}, the rig graph {rig}")
@@ -3254,7 +3453,8 @@ def _mesh_rank(mesh, frames_path: str, n_frames: int, card: str):
           f"({torch.cuda.get_device_name(mesh.device)})", flush=True)
     with open(frames_path, "rb") as fh:
         data = pickle.load(fh)
-    out = {"device": str(mesh.device)}
+    # the extraction kernel's counts of this rank's drives, each held here
+    out = {"device": str(mesh.device), "extract": EXTRACT_COUNTS}
     recorded = []
     keep = mesh.rank == 0
     if gloo:
@@ -3265,8 +3465,9 @@ def _mesh_rank(mesh, frames_path: str, n_frames: int, card: str):
             torch.cuda.synchronize()
             cuda_knn.LAUNCHES = 0
             cuda_knn.reset_executions(mesh.device)
-            res, ms, calls = _mesh_drive(slam, data["bench"][:n_frames],
-                                         record_at=PROFILED.start, keep_inputs=keep)
+            with extract_counted(f"mesh {group} bench {name}", n_frames, mesh.device):
+                res, ms, calls = _mesh_drive(slam, data["bench"][:n_frames],
+                                             record_at=PROFILED.start, keep_inputs=keep)
             out[name] = {**_mesh_record(res, ms), "launches": cuda_knn.LAUNCHES,
                          "executions": cuda_knn.executions(mesh.device)}
             recorded.append((f"{group} bench {name}", calls))
@@ -3280,13 +3481,15 @@ def _mesh_rank(mesh, frames_path: str, n_frames: int, card: str):
             out["streams"] = {}
             for name, kw in MESH_STREAM_MODES:
                 slam = Slam(bench_config(16, 1800), mesh=mesh, **kw)
-                if name == "kp":
-                    ms, outs = _stream_run_ms(slam, data["bench"])
-                else:
-                    ms = None
-                    for f in data["bench"][:WINDOW + 1]:
-                        slam.add_frame_async(f)
-                    outs = slam.flush()
+                drive = data["bench"] if name == "kp" else data["bench"][:WINDOW + 1]
+                with extract_counted(f"mesh {group} stream {name}", len(drive), mesh.device):
+                    if name == "kp":
+                        ms, outs = _stream_run_ms(slam, drive)
+                    else:
+                        ms = None
+                        for f in drive:
+                            slam.add_frame_async(f)
+                        outs = slam.flush()
                 _require(slam._graph is None, f"[mesh gloo stream {name}] captured a graph")
                 out["streams"][name] = _mesh_record(outs, ms)
     acq, offset = render_rig(MESH_RIG_ACQ)
@@ -3297,13 +3500,15 @@ def _mesh_rank(mesh, frames_path: str, n_frames: int, card: str):
         return out
     with numpy_ingest():
         slam = Slam(full_config(), mesh=mesh, shard_maps=True)
-        results, ms, calls = _mesh_drive(slam, data["full"], record_at=PROFILED.start,
-                                         keep_inputs=keep)
+        with extract_counted(f"mesh {group} full maps", len(data["full"]), mesh.device):
+            results, ms, calls = _mesh_drive(slam, data["full"], record_at=PROFILED.start,
+                                             keep_inputs=keep)
         out["full"] = _mesh_record(results, ms)
         recorded.append((f"{group} full maps", calls))
     slam = Slam(rig_config(), mesh=mesh, shard_maps=True)
     slam.set_base_to_lidar_offset(1, offset)
-    res, ms, _ = _mesh_drive(slam, acq, add="add_frames")
+    with extract_counted(f"mesh {group} rig", 2 * len(acq), mesh.device):
+        res, ms, _ = _mesh_drive(slam, acq, add="add_frames")
     out["rig"] = _mesh_record(res, ms)
 
     poses, times, covs, gps, gps_t, _ = pgo_graph(PGO_POSES)
@@ -3413,6 +3618,8 @@ def phase_mesh(card: str, frames, distorted, sync: dict, full: dict, stream_ms: 
           flush=True)
 
     g0 = gloo[0]
+    for r in (g0, nccl[0]):     # each rank held its own counts
+        EXTRACT_COUNTS.update((k, v) for k, v in r["extract"].items() if k.startswith("mesh"))
     m = g0["map_ops"]
     _require(all(r["map_ops"] == m for r in gloo) and m["insert"] and m["knn"] and m["roll"]
              and m["migrated"] > 0,
@@ -3621,6 +3828,7 @@ def main() -> int:
           f"(~{len(frames[0]['xyz'])} points each) in {time.perf_counter() - t0:.1f} s",
           flush=True)
     rec = phase_kernel(frames, card)
+    extract = phase_extract(card)
     done(3)
     print("[ingest] phases 4-7 pin the port's host ingest to numpy, on which their JAX "
           "references were made (ROADMAP Queue 3, F5); phase 5's native runs and phase 8 "
@@ -3709,7 +3917,13 @@ def main() -> int:
         "bench_stream_native_ms": {"inline": ingest["inline_ms"],
                                    "worker": ingest["worker_ms"]},
         "frontends": front["times"],
-        "stream_frames_profiled": WINDOW}]}),
+        "stream_frames_profiled": WINDOW}, {
+        "name": "extract", "route": "cuda", "source": "lidarslam_tpu_torch/csrc/extract.cu",
+        "replaces": "no TPU kernel: the XLA-fused jnp stencils of "
+                    "lidarslam_tpu/ops/extractor.py",
+        "max_abs_err": extract["max_abs_err"], "shapes": extract["shapes"],
+        "launches": EXTRACT_COUNTS["bench sync"]["calls"],
+        "counts_by_path": EXTRACT_COUNTS}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """lidarslam_tpu_torch — the LiDAR SLAM engine on PyTorch and CUDA.
 
 A port of `lidarslam_tpu` (JAX) for NVIDIA Hopper: plain tensor code is
-PyTorch, and the map k-NN that the JAX package writes in Pallas for the TPU
-is a CUDA kernel written by hand (`csrc/knn.cu`, built at first use).
+PyTorch, the map k-NN that the JAX package writes in Pallas for the TPU
+is a CUDA kernel written by hand (`csrc/knn.cu`), and so is the keypoint
+labelling of a sweep on the card (`csrc/extract.cu`); both are built at
+first use.
 This package never imports jax.
 
     from lidarslam_tpu_torch import Slam, SlamConfig

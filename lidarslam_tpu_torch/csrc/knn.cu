@@ -675,9 +675,12 @@ extern "C" int knn_launch(const void* pts, const void* sub_lo, const void* sub_h
 // ---------------------------------------------------------------------------
 extern "C" __global__ void slam_mark_ego_begin() {}
 extern "C" __global__ void slam_mark_ego_end() {}
+extern "C" __global__ void slam_mark_extract_begin() {}
+extern "C" __global__ void slam_mark_extract_end() {}
 
-// Launch marker `which` (0: slam_mark_ego_begin, 1: slam_mark_ego_end) on
-// `stream`; a cudaError code, 0 on success.
+// Launch marker `which` (0: slam_mark_ego_begin, 1: slam_mark_ego_end,
+// 2: slam_mark_extract_begin, 3: slam_mark_extract_end) on `stream`; a
+// cudaError code, 0 on success.
 extern "C" int slam_mark(int which, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (which) {
@@ -686,6 +689,12 @@ extern "C" int slam_mark(int which, void* stream) {
       break;
     case 1:
       slam_mark_ego_end<<<1, 1, 0, st>>>();
+      break;
+    case 2:
+      slam_mark_extract_begin<<<1, 1, 0, st>>>();
+      break;
+    case 3:
+      slam_mark_extract_end<<<1, 1, 0, st>>>();
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -17,7 +17,9 @@ version, a CUDA tensor to the kernel; anything else raises. There is no
 fallback from one to the other.
 
 The kernel is built from the sources in this package at first use with
-nvcc for sm_90a, into `lidarslam_tpu_torch/_build/`, and loaded with ctypes.
+nvcc for sm_90a, into `lidarslam_tpu_torch/_build/`, and loaded with ctypes;
+the same library holds the extraction kernel (`csrc/extract.cu`,
+`ops/cuda_extract.py`).
 Each wrapper call that launches it adds one to `LAUNCHES`. One call is four
 launches (plan, prefix, scan, merge; see the note at the top of
 `csrc/knn.cu`) with a workspace the wrapper allocates on the current
@@ -53,10 +55,12 @@ _INT_MAX = 2**31 - 1
 
 LAUNCHES = 0       # kernel launches made through `launch`
 KERNELS = ("knn_plan", "knn_prefix", "knn_scan", "knn_merge")  # csrc/knn.cu
-MARKS = ("ego_begin", "ego_end")   # csrc/knn.cu slam_mark_<name>, in slam_mark's order
+# csrc/knn.cu slam_mark_<name>, in slam_mark's order
+MARKS = ("ego_begin", "ego_end", "extract_begin", "extract_end")
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "knn.cu"
+# the port's CUDA sources, built together into one library
+_SOURCES = (_PKG / "csrc" / "knn.cu", _PKG / "csrc" / "extract.cu")
 _BUILD_DIR = _PKG / "_build"
 _lib = None
 _lib_lock = threading.Lock()
@@ -201,29 +205,32 @@ def _nvcc() -> str:
             return str(Path(cand, "bin", "nvcc"))
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the k-NN kernel is built from "
-                           "csrc/knn.cu at first use and needs the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "csrc/ at first use and need the CUDA toolkit")
     return found
 
 
 def build_kernel() -> Path:
-    """Compile csrc/knn.cu for sm_90a into _build/ (once per source
-    content) and return the shared library's path."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    out = _BUILD_DIR / f"libknn_{tag}.so"
+    """Compile the port's CUDA sources (`csrc/knn.cu`, `csrc/extract.cu`)
+    for sm_90a into one shared library under _build/, in one nvcc call
+    (once per content of the sources), and return its path."""
+    digest = hashlib.sha1()
+    for src in _SOURCES:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    tag = digest.hexdigest()[:12]
+    out = _BUILD_DIR / f"libslamcuda_{tag}.so"
     if out.is_file():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
            "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SOURCE)]
+           "-o", str(tmp), *map(str, _SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
-    (_BUILD_DIR / f"libknn_{tag}.ptxas.txt").write_text(proc.stderr)
+    (_BUILD_DIR / f"libslamcuda_{tag}.ptxas.txt").write_text(proc.stderr)
     return out
 
 
@@ -245,6 +252,15 @@ def _library():
             lib.knn_reset_executions.restype = i32
             lib.slam_mark.argtypes = [i32, ptr]
             lib.slam_mark.restype = i32
+            lib.extract_launch.argtypes = [ptr, ptr]
+            lib.extract_launch.restype = i32
+            lib.extract_executions.argtypes = [ptr]
+            lib.extract_executions.restype = i32
+            lib.extract_reset_executions.argtypes = []
+            lib.extract_reset_executions.restype = i32
+            for const in (lib.extract_max_w, lib.extract_max_c, lib.extract_args_bytes):
+                const.argtypes = []
+                const.restype = i32
             consts = (lib.knn_sub_block, lib.knn_tile, lib.knn_max_k,
                       lib.knn_scan_warps_per_cta)
             for const in consts:

@@ -12,6 +12,10 @@ reference's stable sort does).
 
 Scores keep the reference's units: depth gap and saliency are squared
 distances, angle scores are sines.
+
+These stencils (`label_grids`) are the CPU path and the reference of the
+CUDA path, which labels a sweep in one launch of `csrc/extract.cu`
+(`ops/cuda_extract.py`) with the same results; both compact alike.
 """
 
 from __future__ import annotations
@@ -23,8 +27,9 @@ import torch
 
 from lidarslam_tpu_torch.config import ExtractorConfig
 from lidarslam_tpu_torch.core import pca
-from lidarslam_tpu_torch.ops import prims
+from lidarslam_tpu_torch.ops import cuda_extract, prims
 from lidarslam_tpu_torch.ops.frame import Keypoints, RangeImage
+from lidarslam_tpu_torch.utils.timer import device_mark
 
 _NEG = -3.0e38
 _POS = 3.0e38
@@ -83,10 +88,67 @@ class ExtractionResult(NamedTuple):
     debug: Optional[dict] = None
 
 
+class LabelGrids(NamedTuple):
+    """The per-point outputs of extraction, each (R, C): the three label
+    masks, the point validity, the edge validity after the four edge passes
+    (selected edges included) and the four scores."""
+    edge: torch.Tensor
+    plane: torch.Tensor
+    blob: torch.Tensor
+    point_valid: torch.Tensor
+    edge_validity: torch.Tensor
+    sin_angle: torch.Tensor
+    saliency: torch.Tensor
+    depth_gap: torch.Tensor
+    intensity_gap: torch.Tensor
+
+
 def extract_keypoints(ri: RangeImage, azimuthal_resolution: float,
                       cfg: ExtractorConfig, with_debug: bool = False) -> ExtractionResult:
     """Full extraction pipeline on one sweep; `with_debug` also returns the
-    per-point score and label grids (`Slam.extract_debug`)."""
+    per-point score and label grids (`Slam.extract_debug`).
+
+    A sweep on a CUDA device is labelled by one launch of the kernel in
+    `csrc/extract.cu` (`ops/cuda_extract.py`), a sweep on the CPU by the
+    stencils of `label_grids`; both compact the labels alike. On CUDA the
+    whole stage, compaction included, sits between the marker kernels
+    `slam_mark_extract_begin` / `_end` (utils/timer.device_mark)."""
+    if not ri.xyz.is_cuda:
+        return _result(ri, label_grids(ri, azimuthal_resolution, cfg), cfg, with_debug)
+    device_mark("extract_begin", ri.xyz.device)
+    labels, scores = cuda_extract.launch(ri, azimuthal_resolution, cfg)
+    out = _result(ri, LabelGrids(*labels, *scores), cfg, with_debug)
+    device_mark("extract_end", ri.xyz.device)
+    return out
+
+
+def _result(ri: RangeImage, g: LabelGrids, cfg: ExtractorConfig,
+            with_debug: bool) -> ExtractionResult:
+    debug = None
+    if with_debug:
+        debug = {
+            "sin_angle": g.sin_angle,
+            "saliency": g.saliency,
+            "depth_gap": g.depth_gap,
+            "intensity_gap": g.intensity_gap,
+            "edge_keypoint": g.edge,
+            "plane_keypoint": g.plane,
+            "blob_keypoint": g.blob,
+            "edge_validity": g.edge_validity,
+            "point_validity": g.point_valid,
+        }
+    return ExtractionResult(
+        edges=_compact(ri, g.edge, cfg.kp_capacity(0)),
+        planes=_compact(ri, g.plane, cfg.kp_capacity(1)),
+        blobs=_compact(ri, g.blob, cfg.kp_capacity(2)),
+        debug=debug,
+    )
+
+
+def label_grids(ri: RangeImage, azimuthal_resolution, cfg: ExtractorConfig) -> LabelGrids:
+    """The torch form of the labelling: shifted-copy stencils over the whole
+    range image and the NMS fixpoint. The CPU path, and the reference the
+    CUDA kernel is held to."""
     xyz, intensity, valid = ri.xyz, ri.intensity, ri.valid
     R, C = valid.shape
     W = cfg.neighbor_width
@@ -225,26 +287,10 @@ def extract_keypoints(ri: RangeImage, azimuthal_resolution: float,
                           maximize=False)
 
     label_blob = point_valid & (col % cfg.blob_stride == 0)
-
-    debug = None
-    if with_debug:
-        debug = {
-            "sin_angle": sin_angle,
-            "saliency": saliency,
-            "depth_gap": depth_gap,
-            "intensity_gap": intensity_gap,
-            "edge_keypoint": label_edge,
-            "plane_keypoint": label_plane,
-            "blob_keypoint": label_blob,
-            "edge_validity": valid_edge | label_edge,
-            "point_validity": point_valid,
-        }
-    return ExtractionResult(
-        edges=_compact(ri, label_edge, cfg.kp_capacity(0)),
-        planes=_compact(ri, label_plane, cfg.kp_capacity(1)),
-        blobs=_compact(ri, label_blob, cfg.kp_capacity(2)),
-        debug=debug,
-    )
+    return LabelGrids(edge=label_edge, plane=label_plane, blob=label_blob,
+                      point_valid=point_valid, edge_validity=valid_edge | label_edge,
+                      sin_angle=sin_angle, saliency=saliency, depth_gap=depth_gap,
+                      intensity_gap=intensity_gap)
 
 
 def _nms(score, cand, w, rounds, col, persistent_valid, maximize):

@@ -59,6 +59,8 @@ The k-NN kernels (csrc/knn.cu) launch on the current stream, which is the
 capturing stream during capture, so the graph contains them, with the
 workspace the wrapper allocates from the graph's pool;
 `cuda_knn.LAUNCHES` counts Python calls (warm-up and capture), not replays.
+The extraction kernel (csrc/extract.cu, `cuda_extract.LAUNCHES`) is
+captured the same way, once per step.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 """Write the JAX package's VLP-16 trajectories for the PyTorch port.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_reference.py \
-        [--which bench|full|ext|float|rig|pgo|cli|mesh|mesh_stream|all]
+        [--which bench|full|ext|float|rig|pgo|cli|mesh|mesh_stream|extract|all]
 
 Runs the JAX package's `Slam` on the CPU over the first `chip_smoke.N_FRAMES`
 (30) sweeps of the bench sequence (weaving street trajectory), through
@@ -72,6 +72,15 @@ Runs the JAX package's `Slam` on the CPU over the first `chip_smoke.N_FRAMES`
   `shard_extraction` (`bench_ext_*`) and with `shard_maps`
   (`bench_maps_*`) -> `vlp16_mesh_stream_ref.npz`, with the same keys and
   `mesh_devices`. `mesh_stream` (~3.5 min) writes only this second file.
+- `extract` (seconds): the JAX extractor alone (`ops/extractor.py`, jitted)
+  under the outdoor preset's extractor (configs/slam_config_outdoor.yaml)
+  at 2,048 slots a ring, on the sweeps of `chip_smoke.extract_drive` at
+  16 and at 64 rings, at `chip_smoke.EXTRACT_AZ` -> `extract_ref.npz`: per ring count R, every
+  `Keypoints` field of the edge, plane and blob sets stacked over the
+  sweeps (`r{R}_{edges|planes|blobs}_{field}`) and the sha256 of each
+  sweep's points (`r{R}_sha256`, `chip_smoke.sweep_sha256`), so that the port's
+  extraction on the card, which has no jax, is held to it slot for slot
+  (tests/test_torch_cuda.py).
 
 Each holds per frame the poses (float64 4x4), `n_matches`, `failure`,
 `overlap`, `comply_motion_limits`, `stamps` and, in the files written
@@ -376,11 +385,46 @@ def _mesh(Slam, cfgs, drives, path, stream=False):
     print(f"wrote {path}", file=sys.stderr)
 
 
+def _extract(path):
+    import jax
+    import jax.numpy as jnp
+
+    from chip_smoke import EXTRACT_AZ, extract_drive, sweep_sha256
+    from lidarslam_tpu.io import synthetic
+    from lidarslam_tpu.io.yaml_config import load_config
+    from lidarslam_tpu.ops import extractor, frame
+
+    preset = load_config(str(ROOT / "configs" / "slam_config_outdoor.yaml")).extractor
+    run = jax.jit(extractor.extract_keypoints, static_argnums=2)
+    out = {}
+    for rings in (16, 64):
+        cfg = dataclasses.replace(preset, n_rings=rings, max_ring_points=2048)
+        sets = {}
+        frames = extract_drive(synthetic, rings)
+        for f in frames:
+            ri = frame.build_range_image(f["xyz"], f["intensity"], f["laser_id"], f["time"],
+                                         rings, 2048, packed=True).unpack()
+            ext = run(ri, jnp.float32(np.float32(EXTRACT_AZ)), cfg)
+            for name in ("edges", "planes", "blobs"):
+                kp = getattr(ext, name)
+                for field in kp._fields:
+                    sets.setdefault(f"r{rings}_{name}_{field}", []).append(
+                        np.asarray(getattr(kp, field)))
+        out.update({k: np.stack(v) for k, v in sets.items()})
+        out[f"r{rings}_sha256"] = np.asarray([sweep_sha256(f) for f in frames])
+        print(f"extract {rings} rings: edges / planes / blobs "
+              f"{[out[f'r{rings}_{n}_count'].tolist() for n in ('edges', 'planes', 'blobs')]}",
+              file=sys.stderr)
+    np.savez_compressed(path, az=np.float32(EXTRACT_AZ), **out)
+    print(f"wrote {path}", file=sys.stderr)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=str(ROOT / "lidarslam_tpu_torch" / "data"))
     ap.add_argument("--which", choices=("bench", "full", "ext", "float", "rig", "pgo", "cli",
-                                        "mesh", "mesh_stream", "all"), default="all")
+                                        "mesh", "mesh_stream", "extract", "all"),
+                    default="all")
     args = ap.parse_args()
 
     if args.which in ("mesh", "mesh_stream", "all") and \
@@ -446,6 +490,9 @@ def main():
         native.available = lambda: False
         _mesh(Slam, {"bench": cfg}, {"bench": frames(False)},
               out / "vlp16_mesh_stream_ref.npz", stream=True)
+    if args.which in ("extract", "all"):
+        native.available = lambda: False
+        _extract(out / "extract_ref.npz")
     print(f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
 

@@ -910,3 +910,151 @@ def test_cuda_profile_readings_match_key_averages(cuda):
     for name, ms in want_ms.items():
         assert dur[name] == pytest.approx(ms, rel=1e-6, abs=1e-6), name
     assert profiling.device_busy_ms(prof) == pytest.approx(sum(want_ms.values()), rel=1e-6)
+
+
+@functools.lru_cache(maxsize=2)
+def _extract_drive(rings):
+    """A 30-sweep drive at rings x 2048 firings, as host point lists."""
+    frames = synthetic.generate_sequence(
+        n_frames=30, seed=5, motion_distortion=False,
+        sensor=synthetic.SensorModel(n_rings=rings, n_azimuth=2048, range_noise=0.005))
+    return [(f["xyz"], f["intensity"], f["laser_id"], f["time"]) for f in frames]
+
+
+def _hold_extraction(ri, az, cfg):
+    """The kernel's extraction of one sweep against the torch form's on the
+    same card: every Keypoints field of the three sets equal slot for slot,
+    the label and validity grids equal, the four scores within 1e-5 in
+    their units. Returns the labelled counts (edges, planes, blobs)."""
+    from lidarslam_tpu_torch.ops import cuda_extract, extractor
+
+    n = cuda_extract.LAUNCHES
+    got = extractor.extract_keypoints(ri, az, cfg, with_debug=True)
+    assert cuda_extract.LAUNCHES == n + 1
+    want = extractor._result(ri, extractor.label_grids(ri, az, cfg), cfg, True)
+    for g, w in zip(got[:3], want[:3]):
+        for name, a, b in zip(g._fields, g, w):
+            assert torch.equal(a, b), name
+    for name, w in want.debug.items():
+        g = got.debug[name]
+        if w.dtype == torch.bool:
+            assert torch.equal(g, w), name
+        else:
+            assert (g - w).abs().max().item() <= 1e-5, name
+    return tuple(int(want.debug[k].sum()) for k in
+                 ("edge_keypoint", "plane_keypoint", "blob_keypoint"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 4])
+@pytest.mark.parametrize("rings", [16, 64])
+def test_cuda_extraction_kernel_equals_torch_form(cuda, rings, width):
+    """Every sweep of a 30-sweep drive at 16 x 2048 and 64 x 2048, at
+    neighbor_width 2 and 4, the azimuthal resolution as a host float and as
+    a device scalar; at 16 rings also the 8-ring slice a rank of a
+    two-rank `shard_extraction` takes (rings 8-15, half the capacities)."""
+    import dataclasses
+
+    from lidarslam_tpu_torch.ops.frame import build_range_image
+
+    cfg = ExtractorConfig(n_rings=rings, max_ring_points=2048, neighbor_width=width)
+    half = dataclasses.replace(cfg, n_rings=rings // 2, max_keypoints=cfg.max_keypoints // 2)
+    az = float(np.float32(2 * np.pi / 2048))
+    az_dev = torch.full((), az, dtype=torch.float32, device=cuda)
+    total = np.zeros(3, dtype=np.int64)
+    for i, (xyz, inten, laser, t) in enumerate(_extract_drive(rings)):
+        ri = build_range_image(xyz, inten, laser, t, rings, 2048, device=cuda)
+        total += _hold_extraction(ri, az if i % 2 else az_dev, cfg)
+        if rings == 16:
+            part = type(ri)(*(a[8:16] for a in ri))
+            _hold_extraction(part, az_dev, half)
+    assert (total > 0).all(), total
+
+
+@pytest.mark.cuda
+def test_cuda_live_graph_replays_the_extraction_kernel(cuda):
+    """add_frame launches the kernel once a sweep eagerly, once more to
+    capture the live graph, and never after: each replay executes it once
+    on the device."""
+    from lidarslam_tpu_torch.ops import cuda_extract
+
+    frames = synthetic.generate_sequence(
+        n_frames=10, motion_distortion=False, sensor=synthetic.SensorModel(range_noise=0.005))
+    slam = Slam(_small_stream_cfg(), device=cuda)
+    cuda_extract.reset_executions(cuda)
+    per_sweep = []
+    for f in frames:
+        launches, runs = cuda_extract.LAUNCHES, cuda_extract.executions(cuda)
+        slam.add_frame(f)
+        per_sweep.append((cuda_extract.LAUNCHES - launches,
+                          cuda_extract.executions(cuda) - runs))
+    eager = 2 + stream_graph.WARMUP_STEPS    # first sweep, warm-ups, capture
+    assert per_sweep == [(1, 1)] * eager + [(0, 1)] * (len(frames) - eager)
+    assert slam.live_replays == len(frames) - (1 + stream_graph.WARMUP_STEPS)
+
+
+@pytest.mark.cuda
+def test_cuda_extraction_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from lidarslam_tpu_torch.ops import cuda_extract, extractor
+    from lidarslam_tpu_torch.ops.frame import RangeImage
+
+    def sweep(C):
+        return RangeImage(xyz=torch.zeros((2, C, 3), device=cuda),
+                          intensity=torch.zeros((2, C), device=cuda),
+                          time=torch.zeros((2, C), device=cuda),
+                          valid=torch.zeros((2, C), dtype=torch.bool, device=cuda))
+
+    n = cuda_extract.LAUNCHES
+    cfg = ExtractorConfig(n_rings=2, max_ring_points=64)
+    with pytest.raises(ValueError, match="neighbor_width"):
+        extractor.extract_keypoints(
+            sweep(64), 0.003, ExtractorConfig(neighbor_width=cuda_extract.MAX_W + 1))
+    with pytest.raises(ValueError, match="slots a ring"):
+        extractor.extract_keypoints(sweep(cuda_extract.MAX_C + 1), 0.003, cfg)
+    with pytest.raises(ValueError, match="azimuthal resolution"):
+        extractor.extract_keypoints(sweep(64), torch.zeros((), dtype=torch.float64,
+                                                           device=cuda), cfg)
+    assert cuda_extract.LAUNCHES == n
+    ext = extractor.extract_keypoints(sweep(cuda_extract.MAX_C), 0.003, cfg)
+    assert cuda_extract.LAUNCHES == n + 1 and int(ext.edges.count) == 0
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("rings", [16, 64])
+def test_extraction_equals_the_jax_reference(device, rings, monkeypatch):
+    """The port's extraction under the outdoor preset, on the card (the
+    kernel) and on the CPU (the torch form), against the JAX extractor's
+    keypoint sets on the same sweeps (chip_smoke.EXTRACT_REF_PATH, made by
+    scripts/make_torch_reference.py --which extract): every `Keypoints`
+    field of the edge, plane and blob sets equal slot for slot, the
+    saturated planes' and blobs' thinning included. Both packages take the
+    numpy ingest and the quantized sweep wire, as the main path does."""
+    import dataclasses
+
+    import chip_smoke
+    from lidarslam_tpu_torch.io import native
+    from lidarslam_tpu_torch.io.yaml_config import load_config
+    from lidarslam_tpu_torch.ops import extractor
+    from lidarslam_tpu_torch.ops.frame import build_range_image
+
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the port's CUDA kernel has no CPU mode")
+    monkeypatch.setattr(native, "available", lambda: False)
+    ref = np.load(chip_smoke.EXTRACT_REF_PATH)
+    preset = load_config(str(chip_smoke.ROOT / "configs" / "slam_config_outdoor.yaml")).extractor
+    cfg = dataclasses.replace(preset, n_rings=rings, max_ring_points=2048)
+    az = float(np.float32(chip_smoke.EXTRACT_AZ))
+    assert float(ref["az"]) == az
+    frames = chip_smoke.extract_drive(synthetic, rings)
+    assert [chip_smoke.sweep_sha256(f) for f in frames] == ref[f"r{rings}_sha256"].tolist()
+    for i, f in enumerate(frames):
+        ri = build_range_image(f["xyz"], f["intensity"], f["laser_id"], f["time"], rings,
+                               2048, packed=True, device=device).unpack()
+        ext = extractor.extract_keypoints(ri, az, cfg)
+        for name in ("edges", "planes", "blobs"):
+            kp = getattr(ext, name)
+            assert int(kp.count) > 200, (i, name)
+            for field in kp._fields:
+                np.testing.assert_array_equal(getattr(kp, field).cpu().numpy(),
+                                              ref[f"r{rings}_{name}_{field}"][i],
+                                              err_msg=f"sweep {i} {name}.{field}")

@@ -258,10 +258,13 @@ def test_count_spans_reach_the_readers(drive, mode):
 
 def test_device_marks_name_the_kernels():
     """The markers' names are kernels of csrc/knn.cu, the ones the device
-    reader pairs; off CUDA a mark does nothing."""
+    readers of their stage pair; off CUDA a mark does nothing."""
     src = (ROOT / "lidarslam_tpu_torch" / "csrc" / "knn.cu").read_text()
-    reader = (ROOT / "slambench" / "metrics" / "ego_device_ms_per_sweep.py").read_text()
+    metrics = ROOT / "slambench" / "metrics"
+    readers = {"ego": ("ego_device_ms_per_sweep.py",),
+               "extract": ("extract_device_ms_per_sweep.py", "extract_kernels_per_sweep.py")}
     for name in cuda_knn.MARKS:
         assert f'extern "C" __global__ void slam_mark_{name}()' in src
-        assert f'"slam_mark_{name}"' in reader
+        for reader in readers[name.rsplit("_", 1)[0]]:
+            assert f'"slam_mark_{name}"' in (metrics / reader).read_text()
     timer.device_mark("ego_begin", "cpu")
