@@ -1267,9 +1267,10 @@ def numpy_ingest():
 
 def _replay_vs_eager(tag, g, record, step, cfg, map_cfgs, path_calls=None, exact=False):
     """The eager step of `step` from a copy of the graph's state on the
-    record's inputs under set_sync_debug_mode("error") (its k-NN calls'
-    inputs appended to `path_calls` when given), against one replay of the
-    graph `g` on `record`; with `exact` every scalar the step packs must be
+    record's inputs under set_sync_debug_mode("error"), a slab-sharded
+    map's roll taking the loop the graph captures (its k-NN calls' inputs
+    appended to `path_calls` when given), against one replay of the graph
+    `g` on `record`; with `exact` every scalar the step packs must be
     bit-equal. Returns (m, deg, total matches)."""
     import numpy as np
     import torch
@@ -1278,6 +1279,7 @@ def _replay_vs_eager(tag, g, record, step, cfg, map_cfgs, path_calls=None, exact
     from lidarslam_tpu_torch.ops import pipeline
     from lidarslam_tpu_torch.ops.frame import FlatRangeImage
     from lidarslam_tpu_torch.ops.stream_graph import clone_tree
+    from lidarslam_tpu_torch.parallel import sharded_map
 
     g.record.copy_(record)
     inp, stamp, _ = g.wire.unpack(g.record)
@@ -1288,12 +1290,15 @@ def _replay_vs_eager(tag, g, record, step, cfg, map_cfgs, path_calls=None, exact
     stamp = stamp.clone()
     before = clone_tree(g.state)
     torch.cuda.synchronize()
+    capturing = sharded_map._capturing
+    sharded_map._capturing = lambda t: True
     torch.cuda.set_sync_debug_mode("error")
     try:
         (_, packed_eager, _), calls = _record_knn_calls(
             lambda: step(inp, before, stamp, g.az, cfg, map_cfgs, False))
     finally:
         torch.cuda.set_sync_debug_mode("default")
+        sharded_map._capturing = capturing
     if path_calls is not None:
         path_calls.extend(calls)
     g.graph.replay()

@@ -3,16 +3,11 @@
 `icp_iters` rounds of (match every keypoint type, robust LM) with a linearly
 shrinking Tukey saturation distance (Slam.cxx:892-954, 1071-1156). The
 minimum-match guard and the state updates are `where`-gated on the device
-`active` flag, as in the JAX package's loop body. The early exit — the
-reference BREAKS when LM converges in one step (Slam.cxx:950, 1151) — takes
-one of two forms with bit-identical results:
-
-- host exit (the synchronous path): one host read of `active` per round,
-  which skips the remaining rounds' matcher and LM work;
-- `gated=True` (the streaming step): all `icp_iters` rounds run and an
-  inactive round changes nothing, as a skipped round of the JAX
-  `while_loop` does. No host read, so the step can be captured in a CUDA
-  graph.
+`active` flag, as in the JAX package's loop body. Where the reference
+BREAKS (LM converged in one step, Slam.cxx:950, 1151), `active` turns off:
+all `icp_iters` rounds run and an inactive round changes nothing, as a
+skipped round of the JAX `while_loop` does. The loop reads nothing on the
+host, so a CUDA graph can capture it.
 
 With `MatchingConfig.reuse_knn` the map k-NN runs once, in round 0, and later
 rounds reuse the neighbour coordinates with exact distances against the
@@ -20,8 +15,8 @@ refined pose: one kernel launch per keypoint type per frame.
 
 With `count=True` the loop also counts on the device the rounds whose gate
 was still open when they began and the LM trips those rounds' solves began
-before converging (`ICPResult.rounds`, `ICPResult.lm_steps`): the same
-numbers on both forms, read with the step's other scalars.
+before converging (`ICPResult.rounds`, `ICPResult.lm_steps`), read with the
+step's other scalars.
 
 Undistortion (ONCE / REFINED) warps the raw keypoints by the sweep motion
 (`undistortion.compute_warp`) before they are matched: ONCE keeps the warp
@@ -85,11 +80,10 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
                  undistort_mode: UndistortionMode = UndistortionMode.NONE,
                  prev_pose=None, t_prev=None, t_cur=None, time_range=None,
                  max_extrapolation_ratio: float = 3.0, extras=(),
-                 gated: bool = False, prune_radii=(None, None, None), mesh=None,
+                 prune_radii=(None, None, None), mesh=None,
                  map_shard: bool = False, count: bool = False) -> ICPResult:
     """Run the ICP-LM loop from `pose0`. `prepared`: per-type
-    `cuda_knn.KnnIndex` (built here when missing on CUDA). `gated`: run
-    every round with no host read (see module docstring). Undistortion
+    `cuda_knn.KnnIndex` (built here when missing on CUDA). Undistortion
     needs `prev_pose`, the stamps `t_prev`, `t_cur` and the sweep's point
     `time_range` (time0, time1), all () float32 tensors. `prune_radii`: per
     type, the radius beyond which the kernel may skip map sub-blocks (None:
@@ -195,11 +189,6 @@ def icp_register(inputs: ICPInputs, types: Sequence[Keypoint], pose0,
                             for b, w in zip(blocks, weights))
             failed = failed | (active & ~enough)
             active = step_ok & (res.n_success != 1)
-            if not gated:
-                with span("slam.sync"):   # host read: the early exit
-                    go_on = bool(active)
-                if not go_on:
-                    break
 
     final_warp = None
     if undistort:

@@ -4,28 +4,19 @@
 `process_frame` runs keypoint extraction, the optional scan-to-scan
 ego-motion ICP, scan-to-map localization ICP (with ONCE / REFINED
 undistortion), the LCP overlap, the keyframe gate and the rolling-map update
-for one sweep. Where the JAX package decides on device with `lax.cond` /
-`while_loop`, this port has two forms of `process_keypoints`:
+for one sweep, with no host read. Where the JAX package decides on device
+with `lax.cond` / `while_loop`, the step computes both sides and
+`torch.where`-selects on the device flags: the submap rebuild
+(`SubmapCache`) on `cache_stale`, the map update on the keyframe gate. Both
+ICP loops (ego-motion and localization) run every round, gated, and the
+packed scalars (`pack_scalars`) stay on the device, so a CUDA graph can
+capture the step (ops/stream_graph.py). `Slam.add_frame` runs it eagerly
+or, on one CUDA device, replays it, and reads the packed scalars once;
+`_stream_step` chains the device `StreamState` from frame to frame. The
+keyframe thresholds come from the keyframe counter on the device, and the
+covariance from a Jacobi pseudo-inverse (solver.py).
 
-- synchronous (`Slam.add_frame`): host branches. The submap rebuild
-  (`SubmapCache`) runs when the host-side `cache_stale` flag says the map
-  changed since the last rebuild; both ICP loops (ego-motion and
-  localization) exit early on a host read; the keyframe gate travels in the
-  frame's one transfer of packed scalars (`pack_scalars`) and the map
-  update is issued after it. A keyframe then reads the maps' post-insert
-  overflow counts in a second small transfer.
-- `sync_free=True` (the streaming step, and `Slam.add_frame` on one CUDA
-  device): no host read. The submap rebuild and the map update are
-  computed every frame and `torch.where`-selected on the device flags,
-  both ICP loops run every round, gated, and the packed scalars stay on
-  the device, so a CUDA graph can capture the step (ops/stream_graph.py).
-  `_stream_step` chains the device `StreamState` from frame to frame;
-  `add_frame`'s graph takes the host's inputs each sweep.
-
-Both forms compute the keyframe thresholds from the keyframe counter on the
-device, and the covariance by a Jacobi pseudo-inverse (solver.py).
-
-Every single-LiDAR option runs on both forms: blobs with the blob map, the
+Every single-LiDAR option runs in the step: blobs with the blob map, the
 five leaf-sampling modes, map decay (`clear_old_points`, before the submap
 view, so a decaying type rebuilds its submap every frame and keeps no
 `SubmapCache`) and the sensor residual blocks (`FrameInputs.extras`, added
@@ -109,10 +100,9 @@ class FrameResult(NamedTuple):
     warp: object                 # final WarpParams or None
     statuses: tuple              # (Q,) uint8 per used type
     weights: tuple               # (Q,) f32 per used type
-    packed: object               # (PACKED_LEN,) pack_scalars: a host copy (numpy)
-                                 # on the synchronous path, a tensor when sync-free
+    packed: torch.Tensor         # (PACKED_LEN,) pack_scalars, on the device
     submap_cache: tuple = (None, None, None)
-    cache_stale: object = True   # for the next frame
+    cache_stale: object = True   # () bool, for the next frame
 
 
 PACKED_LEN = 72
@@ -175,17 +165,16 @@ def init_submap_cache(cfg: SlamConfig, map_cfgs, device, sharded: bool = False):
 
 def process_frame(ri, maps: tuple, prev_keypoints: tuple, inp: FrameInputs,
                   cfg: SlamConfig, map_cfgs: tuple, first_frame: bool, mesh=None,
-                  shard_maps: bool = False, shard_extraction: bool = False,
-                  sync_free: bool = False) -> FrameResult:
+                  shard_maps: bool = False, shard_extraction: bool = False) -> FrameResult:
     """Full per-sweep step from a range image (or one of its wires);
     `prev_keypoints`: the previous sweep's Keypoints per type (ego-motion
-    registration's target). `sync_free`: the form with no host read, which
-    `Slam.add_frame` replays as a CUDA graph (ops/stream_graph.FrameGraph);
-    `mesh`, `shard_maps`, `shard_extraction`: see the module docstring."""
+    registration's target). `Slam.add_frame` replays it as a CUDA graph on
+    one CUDA device (ops/stream_graph.FrameGraph); `mesh`, `shard_maps`,
+    `shard_extraction`: see the module docstring."""
     ri = ensure_range_image(ri)
     return process_keypoints(_extract(ri, inp.az_resolution, cfg, mesh, shard_extraction),
                              ri, maps, prev_keypoints, inp, cfg, map_cfgs, first_frame,
-                             sync_free=sync_free, mesh=mesh, shard_maps=shard_maps)
+                             mesh=mesh, shard_maps=shard_maps)
 
 
 def _extract(ri, az_res, cfg: SlamConfig, mesh, shard_extraction: bool):
@@ -239,12 +228,10 @@ def _bbox(world, valid):
 
 def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
                       inp: FrameInputs, cfg: SlamConfig, map_cfgs: tuple,
-                      first_frame: bool, sync_free: bool = False, mesh=None,
-                      shard_maps: bool = False) -> FrameResult:
+                      first_frame: bool, mesh=None, shard_maps: bool = False) -> FrameResult:
     """Per-sweep step from already-extracted keypoints; `ri` (a RangeImage,
-    or None) is sampled for the overlap. `sync_free`: the streaming form,
-    with no host read; `mesh`, `shard_maps`: the multi-device forms (see
-    module docstring)."""
+    or None) is sampled for the overlap. `mesh`, `shard_maps`: the
+    multi-device forms (see module docstring)."""
     types = cfg.used_types
     dev = inp.prev_pose.device
     if shard_maps and mesh is None:
@@ -263,8 +250,7 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
                                EgoMotionMode.MOTION_EXTRAPOLATION_AND_REGISTRATION) \
             and prev_keypoints is not None and not first_frame:
         with span("slam.ego"):
-            trel, ego_counts = _ego_registration(kps, prev_keypoints, trel, cfg, sync_free,
-                                                 mesh)
+            trel, ego_counts = _ego_registration(kps, prev_keypoints, trel, cfg, mesh)
     ego_trel = trel
 
     loc_prior = se3.jcompose_pose(inp.prev_pose, trel)
@@ -287,29 +273,25 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
         index = [None, None, None]
         prepared = [None, None, None]
         maps = list(maps)
+        stale = _device_scalar(inp.cache_stale, torch.bool, dev)
         with span("slam.submap"):
             for t in types:
                 ti = int(t)
                 mc = map_cfgs[ti]
                 if mc.decaying_threshold > 0:
                     maps[ti] = voxel_map.clear_old_points(maps[ti], inp.stamp, mc)
-                m, kp = maps[ti], kps[ti]
-                cache = inp.submap_cache[ti]
-                view = None
-                if cache is None or sync_free or inp.cache_stale:
-                    world = se3.japply_pose(loc_prior, kp.xyz)
-                    bbox_min, bbox_max = _bbox(world, kp.valid)
-                    view = voxel_map.extract_submap_view(
-                        m, bbox_min, bbox_max, torch.div(kp.count, 2, rounding_mode="floor"),
-                        mc, mesh=map_mesh)
-                    if cache is not None:
-                        fresh = SubmapCache(selected=view.valid,
-                                            index=voxel_map.prepare_knn_index(view))
-                        # sync-free: the JAX package's lax.cond on cache_stale,
-                        # computed every frame and selected
-                        new_cache[ti] = _select(inp.cache_stale, fresh, cache) \
-                            if sync_free else fresh
-                if new_cache[ti] is not None:
+                m, kp, cache = maps[ti], kps[ti], inp.submap_cache[ti]
+                world = se3.japply_pose(loc_prior, kp.xyz)
+                bbox_min, bbox_max = _bbox(world, kp.valid)
+                view = voxel_map.extract_submap_view(
+                    m, bbox_min, bbox_max, torch.div(kp.count, 2, rounding_mode="floor"),
+                    mc, mesh=map_mesh)
+                if cache is not None:
+                    # the JAX package's lax.cond on cache_stale, computed
+                    # every frame and selected
+                    fresh = SubmapCache(selected=view.valid,
+                                        index=voxel_map.prepare_knn_index(view))
+                    new_cache[ti] = _select(stale, fresh, cache)
                     view = voxel_map.SubmapView(xyz=m.xyz, ring=None,
                                                 valid=new_cache[ti].selected)
                     prepared[ti] = new_cache[ti].index
@@ -335,7 +317,7 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
                 solver_cfg=cfg.solver, icp_iters=cfg.localization_icp_max_iter,
                 lm_max_iter=cfg.localization_lm_max_iter,
                 min_matches=cfg.min_nb_matched_keypoints, prepared=tuple(prepared),
-                extras=inp.extras, gated=sync_free,
+                extras=inp.extras,
                 prune_radii=(None,) * 3 if shard_maps
                 else tuple(matcher.knn_radius(t, cfg.loc_matching) for t in Keypoint),
                 mesh=mesh, map_shard=shard_maps, **undist_kwargs)
@@ -363,8 +345,7 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
     R_m, _ = se3.jpose_to_rt(kf_motion)
     rot = torch.acos(torch.clamp((torch.trace(R_m) - 1.0) / 2.0, -1.0, 1.0))
     # keyframe thresholds ramp up over the first 10 keyframes
-    kf_counter = inp.kf_counter if isinstance(inp.kf_counter, torch.Tensor) \
-        else torch.full((), inp.kf_counter, dtype=torch.int32, device=dev)
+    kf_counter = _device_scalar(inp.kf_counter, torch.int32, dev)
     coef = torch.clamp(kf_counter.to(torch.float32) / 10.0, max=1.0)
     dist_thr = coef * cfg.kf_distance_threshold
     ang_thr = torch.deg2rad(coef * cfg.kf_angle_threshold)
@@ -400,7 +381,7 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
             # of the roll and the insert are summed over the ranks
             m = maps[ti]
             m = m._replace(overflow=torch.zeros_like(m.overflow))
-            m = sharded_map.shard_roll(m, offset, map_cfgs[ti], mesh, sync_free=sync_free)
+            m = sharded_map.shard_roll(m, offset, map_cfgs[ti], mesh)
             m = sharded_map.shard_add_points(m, shifted, kp.intensity, kp.time, kp.valid,
                                              inp.stamp, map_cfgs[ti], False, mesh)
             return m._replace(overflow=maps[ti].overflow + mesh.psum(m.overflow))
@@ -410,39 +391,17 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
 
     kp_counts = torch.stack([kps[i].count for i in range(3)])
     new_maps = list(maps)
-    if sync_free:
-        # the JAX package's lax.cond on do_update: computed every frame and
-        # selected, so a non-keyframe keeps exactly the old map tensors'
-        # values (overflow included: the update adds the frame's drops once)
-        with span("slam.map_update"):
-            for t in types:
-                new_maps[int(t)] = _select(do_update, update(int(t)), maps[int(t)])
-        packed = pack_scalars(pose, trel, failed, total, counts, cov, offset, do_update,
-                              overlap, _overflow(new_maps, dev), kp_counts, ego_trel,
-                              ego_counts)
-        cache_stale = torch.ones((), dtype=torch.bool, device=dev) if first_frame \
-            else do_update
-    else:
-        # the frame's one device->host transfer: everything the host needs,
-        # and the keyframe decision that gates the map update below.
-        # map_overflow is the cumulative count before this frame's insert; a
-        # keyframe re-reads it after the insert.
-        packed = pack_scalars(pose, trel, failed, total, counts, cov, offset, do_update,
-                              overlap, _overflow(maps, dev), kp_counts, ego_trel,
-                              ego_counts)
-        with span("slam.sync"):
-            packed = packed.cpu().numpy()
-        updated = bool(packed[17] > 0.5)
-        if updated:
-            with span("slam.map_update"):
-                for t in types:
-                    new_maps[int(t)] = update(int(t))
-                overflow = _overflow(new_maps, dev)
-                with span("slam.sync"):
-                    packed[58:61] = overflow.cpu().numpy()
-        # a map update invalidates the submap selection; first_frame skips
-        # matching, so its cache is never built
-        cache_stale = True if first_frame else updated
+    # the JAX package's lax.cond on do_update: computed every frame and
+    # selected, so a non-keyframe keeps exactly the old map tensors' values
+    # (overflow included: the update adds the frame's drops once)
+    with span("slam.map_update"):
+        for t in types:
+            new_maps[int(t)] = _select(do_update, update(int(t)), maps[int(t)])
+    packed = pack_scalars(pose, trel, failed, total, counts, cov, offset, do_update,
+                          overlap, _overflow(new_maps, dev), kp_counts, ego_trel, ego_counts)
+    # a map update invalidates the submap selection; the first frame matches
+    # nothing, so its cache is never built
+    cache_stale = torch.ones((), dtype=torch.bool, device=dev) if first_frame else do_update
 
     return FrameResult(
         maps=tuple(new_maps), keypoints=tuple(kps), pose=pose, trel=trel,
@@ -452,8 +411,7 @@ def process_keypoints(kps: tuple, ri, maps: tuple, prev_keypoints: tuple,
         cache_stale=cache_stale)
 
 
-def _ego_registration(kps, prev_keypoints, trel_prior, cfg: SlamConfig, gated: bool,
-                      mesh=None):
+def _ego_registration(kps, prev_keypoints, trel_prior, cfg: SlamConfig, mesh=None):
     """Scan-to-scan ICP of this sweep's edges and planes against the
     previous sweep's (JAX pipeline.py:277-306). Returns the refined
     ego-motion, or the prior where the ICP fails (an empty previous set
@@ -466,7 +424,7 @@ def _ego_registration(kps, prev_keypoints, trel_prior, cfg: SlamConfig, gated: b
     all of the previous sweep's (replicated). On CUDA the stage lies
     between the marker kernels `slam_mark_ego_begin` and `slam_mark_ego_end`
     (utils/timer.device_mark). Its plain float64 reference is
-    `reference/ego_registration.py`."""
+    `slambench/ego_reference.py`."""
     ego_types = tuple(t for t in (Keypoint.EDGE, Keypoint.PLANE) if cfg.use_keypoints(t))
     index = [None, None, None]
     for t in ego_types:
@@ -480,7 +438,7 @@ def _ego_registration(kps, prev_keypoints, trel_prior, cfg: SlamConfig, gated: b
         types=ego_types, pose0=trel_prior, params=cfg.ego_matching,
         solver_cfg=cfg.solver, icp_iters=cfg.ego_motion_icp_max_iter,
         lm_max_iter=cfg.ego_motion_lm_max_iter,
-        min_matches=cfg.min_nb_matched_keypoints, gated=gated, mesh=mesh, count=True)
+        min_matches=cfg.min_nb_matched_keypoints, mesh=mesh, count=True)
     device_mark("ego_end", trel_prior.device)
     return (torch.where(ego.failed, trel_prior, ego.pose),
             torch.stack([ego.rounds, ego.lm_steps]))
@@ -517,6 +475,12 @@ def _overlap(ri, pose, indices, cfg: SlamConfig, map_cfgs, warp, prepared, map_m
                                   [map_cfgs[int(t)].leaf_size for t in types],
                                   prepared=[prepared[int(t)] for t in types],
                                   mesh=map_mesh)
+
+
+def _device_scalar(x, dtype, device):
+    """A host scalar as a () device tensor (a fill: no copy, no sync); a
+    tensor as it is."""
+    return x if isinstance(x, torch.Tensor) else torch.full((), x, dtype=dtype, device=device)
 
 
 def _select(cond, a, b):
@@ -612,7 +576,7 @@ def _stream_step(kps, ri, state: StreamState, stamp, az_res, cfg: SlamConfig, ma
         map_update=state.map_update, submap_cache=state.submap_cache,
         cache_stale=state.cache_stale)
     res = process_keypoints(kps, ri, state.maps, state.prev_keypoints, inp, cfg, map_cfgs,
-                            first_frame, sync_free=True, mesh=mesh, shard_maps=shard_maps)
+                            first_frame, mesh=mesh, shard_maps=shard_maps)
 
     res_m = voxel_map.effective_resolution(map_cfgs[int(cfg.used_types[0])])
     shift = torch.cat([res.roll_offset.to(torch.float32) * res_m,

@@ -10,7 +10,7 @@
   `where` once converged — the JAX package's own unrolled form
   (`SolverConfig.lm_unroll`), equivalent to its `while_loop` — so it costs
   no host sync per LM step. `n_success` starts at 1 (the initial
-  evaluation), for the ICP early exit on `n_success == 1`;
+  evaluation), for the ICP loop's gate on `n_success == 1`;
 - sensor residual blocks (`extras`: wheel odometry, IMU gravity) add plain
   scaled least squares to every evaluation; an invalid block's weight is 0,
   so it adds exactly nothing;

@@ -36,10 +36,10 @@ of a frame then launch as one graph instead of one Python call each.
 Nothing falls back to eager execution: a capture or replay failure raises.
 
 `FrameGraph` replays `Slam.add_frame`'s step the same way on one device
-with no mesh: `pipeline.process_frame(sync_free=True)` on the sweep's own
-wire (the `ByteRangeImage` buffer `add_frame` uploads, or its float
-planes), with the host's float64-computed inputs in one `FrameRecord`
-that goes up from pinned memory. Its state is the maps, the previous
+with no mesh: `pipeline.process_frame` on the sweep's own wire (the
+`ByteRangeImage` buffer `add_frame` uploads, or its float planes), with
+the host's float64-computed inputs in one `FrameRecord` that goes up from
+pinned memory. Its state is the maps, the previous
 sweep's keypoints and the submap cache with its device staleness flag,
 written in place by each step; `Slam` reseeds it when its own state is not
 the graph's buffers.
@@ -527,7 +527,7 @@ def _copy_wire(dst, src):
 
 class FrameGraph(_Replayed):
     """`Slam.add_frame`'s per-sweep step on one CUDA device (no mesh):
-    `pipeline.process_frame(sync_free=True)` replayed as a CUDA graph.
+    `pipeline.process_frame` replayed as a CUDA graph.
 
     Static inputs: the sweep's wire as `add_frame` builds it (`wire`, the
     template), copied in on the device, and a `FrameRecord` of the host's
@@ -579,6 +579,6 @@ class FrameGraph(_Replayed):
         inp = inp._replace(extras=tuple(b for b, held in zip(blocks, self.blocks) if held),
                            submap_cache=cache, cache_stale=stale | force_stale)
         res = pipeline.process_frame(self.sweep, maps, prev, inp, self.cfg, self.map_cfgs,
-                                     False, sync_free=True)
+                                     False)
         assign_tree(self.state, (res.maps, res.keypoints, res.submap_cache, res.cache_stale))
         return res._replace(maps=maps, keypoints=prev, submap_cache=cache, cache_stale=stale)

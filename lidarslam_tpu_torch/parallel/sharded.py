@@ -183,8 +183,8 @@ def sharded_icp_register(mesh: Mesh, inputs, types: Sequence, pose0, params, sol
 
 def process_frame_spmd(ri, maps, prev_kp, inp, cfg, map_cfgs, first_frame, *, mesh: Mesh,
                        shard_maps: bool = False, shard_extraction: bool = False):
-    """SPMD `pipeline.process_frame` (the synchronous step). With
-    `shard_maps`, `maps` are this rank's slabs."""
+    """SPMD `pipeline.process_frame` (the step `Slam.add_frame` runs).
+    With `shard_maps`, `maps` are this rank's slabs."""
     from lidarslam_tpu_torch.ops import pipeline
 
     return pipeline.process_frame(ri, maps, prev_kp, inp, cfg, map_cfgs, first_frame,

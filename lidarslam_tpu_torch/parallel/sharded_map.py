@@ -19,8 +19,8 @@ memory and the map-side hot loops scale with the number of ranks:
 - **Roll** (`shard_roll`): every rank rebases its slab, then points whose
   new kx leaves the slab migrate to the neighbouring rank over
   `ppermute` rings, one slab per hop: by default until no rank holds a
-  stray (a host loop over the summed stray count; in the streaming step
-  a loop of fixed length that selects on the device), or a fixed
+  stray (a host loop over the summed stray count; under CUDA-graph
+  capture a loop of fixed length that selects on the device), or a fixed
   `max_hops` with the leftovers counted into `overflow`. Migrants keep
   their count, fixed flag and stamp.
 
@@ -180,42 +180,55 @@ def _n_stray(local: VoxelMap, cfg: MapConfig, mesh) -> torch.Tensor:
     return mesh.psum(torch.sum(lo_m | hi_m, dtype=torch.int32))
 
 
-def shard_roll(local: VoxelMap, vox_offset, cfg: MapConfig, mesh, max_hops=None,
-               sync_free: bool = False) -> VoxelMap:
+def shard_roll(local: VoxelMap, vox_offset, cfg: MapConfig, mesh, max_hops=None) -> VoxelMap:
     """RollingGrid::Roll over the sharded map: rebase locally, then migrate
     slab-crossing points over the rings.
 
     `max_hops=None`: hops repeat while any rank holds a stray, at most n
     times (each hop moves every stray one slab toward its owner), so any
-    roll is exact; the loop costs one key scan and one summed count when
-    nothing migrates. With `sync_free` (the streaming step) the loop reads
-    nothing on the host, so a CUDA graph can hold it: it runs all n hops
-    and keeps each one's result only while the summed stray count before
-    it is above 0, which equals the host loop slot for slot. The sync path
-    keeps the host loop: when nothing migrates it skips the hops, which
-    the fixed loop pays for (on an H100, 1.8 against 19.2 ms a roll on gloo
-    x2, 0.7 against 3.7 on NCCL x1: scripts/time_torch_mesh_roll.py). An
-    int `max_hops` runs exactly that many hops and drops the leftovers into
-    `overflow` (bounded latency)."""
+    roll is exact. Under CUDA-graph capture the loop reads nothing on the
+    host (`_hops_sync_free`); everywhere else it reads the summed stray
+    count after each hop and stops (`_hops_host`), which skips the hops
+    when nothing migrates (on an H100, 1.8 against 19.2 ms a roll on gloo
+    x2, 0.7 against 3.7 on NCCL x1: scripts/time_torch_mesh_roll.py). The
+    two agree slot for slot. An int `max_hops` runs exactly that many hops
+    and drops the leftovers into `overflow` (bounded latency)."""
     local = voxel_map.roll_by_offset(local, vox_offset, cfg)
-    if max_hops is None and sync_free:
-        for _ in range(mesh.size):
-            moving = _n_stray(local, cfg, mesh) > 0
-            local = VoxelMap(*(torch.where(moving, a, b)
-                               for a, b in zip(_hop(local, cfg, mesh), local)))
-        return local
     if max_hops is None:
-        stray, hops = int(_n_stray(local, cfg, mesh)), 0
-        while stray > 0 and hops < mesh.size:
-            local = _hop(local, cfg, mesh)
-            stray, hops = int(_n_stray(local, cfg, mesh)), hops + 1
-        return local
+        hops = _hops_sync_free if _capturing(local.valid) else _hops_host
+        return hops(local, cfg, mesh)
     for _ in range(max_hops):
         local = _hop(local, cfg, mesh)
     lo_m, hi_m = _emigrants(local, cfg, mesh)
     stray = lo_m | hi_m
     return local._replace(valid=local.valid & ~stray,
                           overflow=local.overflow + torch.sum(stray, dtype=torch.int32))
+
+
+def _capturing(t: torch.Tensor) -> bool:
+    """Whether `t`'s CUDA stream is capturing a graph (a CPU tensor's never
+    is; a torch built without CUDA raises on the question)."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def _hops_host(local: VoxelMap, cfg: MapConfig, mesh) -> VoxelMap:
+    """The adaptive hops with a host read of the summed stray count before
+    each."""
+    stray, hops = int(_n_stray(local, cfg, mesh)), 0
+    while stray > 0 and hops < mesh.size:
+        local = _hop(local, cfg, mesh)
+        stray, hops = int(_n_stray(local, cfg, mesh)), hops + 1
+    return local
+
+
+def _hops_sync_free(local: VoxelMap, cfg: MapConfig, mesh) -> VoxelMap:
+    """The adaptive hops with no host read: all n run, each kept only while
+    the summed stray count before it is above 0."""
+    for _ in range(mesh.size):
+        moving = _n_stray(local, cfg, mesh) > 0
+        local = VoxelMap(*(torch.where(moving, a, b)
+                           for a, b in zip(_hop(local, cfg, mesh), local)))
+    return local
 
 
 # ----------------------------------------------------------------------

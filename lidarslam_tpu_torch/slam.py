@@ -1,16 +1,15 @@
 """SLAM orchestrator (PyTorch port of `lidarslam_tpu/slam.py`).
 
 `Slam.add_frame` runs one sweep through `ops/pipeline.process_frame` on the
-Slam's device and keeps the float64 pose bookkeeping, the trajectory and
-keypoint logs and the rolling-map origin on the host, as the JAX package
-does. On one CUDA device (no mesh) every sweep after the first replays
-the step's sync-free form as a captured CUDA graph
+Slam's device, reads its packed scalars back once, and keeps the float64
+pose bookkeeping, the trajectory and keypoint logs and the rolling-map
+origin on the host, as the JAX package does. On one CUDA device (no mesh)
+every sweep after the first replays the step as a captured CUDA graph
 (`stream_graph.FrameGraph`, after its eager warm-up steps): the host's
-inputs go up in one pinned record, and the host reads the packed scalars
-back once. The maps, the previous keypoints and the submap cache then
-live in the graph's buffers; whatever replaced them since the last replay
-(a reset, a stream segment's flush, a map load, the PGO, a checkpoint) is
-copied in before the next one.
+inputs go up in one pinned record. The maps, the previous keypoints and
+the submap cache then live in the graph's buffers; whatever replaced them
+since the last replay (a reset, a stream segment's flush, a map load, the
+PGO, a checkpoint) is copied in before the next one.
 
 `Slam.add_frames` takes one acquisition of a multi-LiDAR rig: each
 device's sweep is extracted with its own `ExtractorConfig`, moved into BASE
@@ -406,9 +405,6 @@ class Slam:
                 and len(next_frame["xyz"]) > 0:
             with span("slam.ingest"):
                 self._prefetched = (next_frame["stamp"], self._build_ri(next_frame))
-        if isinstance(res.packed, torch.Tensor):   # a replay's one read
-            with span("slam.sync"):
-                res = res._replace(packed=res.packed.cpu().numpy())
         out = self._apply_result(res, stamp, t0)
         if prev_kps is not None:
             self._device_keypoints = prev_kps
@@ -424,8 +420,7 @@ class Slam:
         """add_frame's step as a step of the live graph (a replay once it is
         captured). The graph's state is reseeded from the host's where the
         host's maps, previous keypoints or submap cache are not the graph's
-        buffers; new maps force the submap's rebuild. The result's packed
-        scalars stay on the device."""
+        buffers; new maps force the submap's rebuild."""
         trel_prior, prev_rel, kf_rel, t_prev, extras = self._host_inputs(stamp)
         g = self._frame_graph_for(ri, extras)
         maps = tuple(self.maps.get(Keypoint(i)) for i in range(3))
@@ -948,9 +943,12 @@ class Slam:
             cache_stale=self._cache_stale)
 
     def _apply_result(self, res: pipeline.FrameResult, stamp, t0) -> dict:
-        """Float64 bookkeeping from the frame's packed scalars."""
+        """Float64 bookkeeping from the frame's packed scalars, read back
+        here: the step's one read."""
         cfg = self.cfg
-        u = pipeline.unpack_scalars(res.packed)
+        with span("slam.sync"):
+            packed = res.packed.cpu().numpy()
+        u = pipeline.unpack_scalars(packed)
         self.maps = {k: res.maps[int(k)] for k in cfg.used_types}
         self._submap_cache = res.submap_cache
         self._cache_stale = res.cache_stale

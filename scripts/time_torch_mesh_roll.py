@@ -1,11 +1,11 @@
 """Time the slab-sharded map's two adaptive rolls
 (`parallel/sharded_map.shard_roll` with `max_hops=None`) on the ranks of a
-mesh: the host loop of the sync path, which reads the summed stray count on
-the host after each hop and stops, and the streaming step's loop of fixed
-length (`sync_free=True`), which runs all n hops and keeps each only while
-that count was above 0, so a CUDA graph can hold it. Both run on the same
-slab as the sync path would run them (each call ended by a device sync), and
-must agree slot for slot.
+mesh: the host loop it runs eagerly (`_hops_host`), which reads the summed
+stray count on the host after each hop and stops, and the loop of fixed
+length it runs under CUDA-graph capture (`_hops_sync_free`), which runs all
+n hops and keeps each only while that count was above 0. Both run eagerly
+on the same slab (each call ended by a device sync), and must agree slot
+for slot.
 
     python3 scripts/time_torch_mesh_roll.py            # gloo x2 on cuda:0, NCCL x1
     python3 scripts/time_torch_mesh_roll.py --cpu      # gloo x2 on the CPU, small
@@ -16,7 +16,6 @@ Prints one line per (group, offset) and a JSON line with every median.
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import statistics
 import sys
@@ -51,11 +50,16 @@ def _rank(mesh, n_points: int, reps: int):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def fixed(local, offset, cfg, mesh):
+        return sharded_map._hops_sync_free(voxel_map.roll_by_offset(local, offset, cfg),
+                                           cfg, mesh)
+
+    def host(local, offset, cfg, mesh):
+        return sharded_map._hops_host(voxel_map.roll_by_offset(local, offset, cfg), cfg, mesh)
+
     out = {"points": int(mesh.psum(local.valid.sum(dtype=torch.int32)))}
     for off in OFFSETS:
         offset = torch.tensor(off, dtype=torch.int32, device=dev)
-        fixed = functools.partial(sharded_map.shard_roll, sync_free=True)
-        host = sharded_map.shard_roll
         same = all(torch.equal(a, b) for a, b in zip(fixed(local, offset, cfg, mesh),
                                                      host(local, offset, cfg, mesh)))
         times = {}

@@ -1,14 +1,15 @@
 """The port's scan-to-scan ego-motion registration against its plain
-float64 reference (`lidarslam_tpu_torch/reference/ego_registration.py`), on
-the CPU at a small size.
+float64 reference (`slambench/ego_reference.py`), on the CPU at a small
+size.
 
 A distorted drive through `Slam.add_frame` with the mode
 MOTION_EXTRAPOLATION_AND_REGISTRATION records each sweep's call of the
 stage (`pipeline._ego_registration`): its keypoints, the previous sweep's
-and the prior. The stage, in both of its forms (host exit and gated
-rounds), is held to the reference computed from the same inputs; the same
-stage with its inputs and solve rounded through bfloat16 (the control,
-`slambench/ego_check.bf16_ego`) fails the same tolerances. The counts the
+and the prior. The stage, called by the eager step and by the live
+graph's body (`FrameGraph._body`, run eagerly), is held to the reference
+computed from the same inputs; the same stage with its inputs and solve
+rounded through bfloat16 (the control, `slambench/ego_check.bf16_ego`)
+fails the same tolerances. The counts the
 stage packs reach the trace as spans that the benchmark's readers count.
 
 Tolerances: the widest gap of the port over the drive's sweeps was
@@ -31,15 +32,15 @@ from lidarslam_tpu_torch import Slam
 from lidarslam_tpu_torch.config import (EgoMotionMode, ExtractorConfig, Keypoint, MapConfig,
                                         SlamConfig, UndistortionMode)
 from lidarslam_tpu_torch.io import synthetic as tsyn
-from lidarslam_tpu_torch.ops import cuda_knn, pipeline
+from lidarslam_tpu_torch.ops import cuda_knn, pipeline, stream_graph
 from lidarslam_tpu_torch.ops.frame import Keypoints
-from lidarslam_tpu_torch.reference import ego_registration as ref
 from lidarslam_tpu_torch.utils import timer
 from test_torch_slam import _one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 from slambench import ego_check, spec, traceread  # noqa: E402
+from slambench import ego_reference as ref  # noqa: E402
 
 TRANS_TOL_M = 1e-4
 ROT_TOL_RAD = 2e-5
@@ -77,42 +78,63 @@ def _reference(kps, prev, prior, prm):
                         pp.xyz[pp.valid], prior, prm)
 
 
-@pytest.fixture(scope="module")
-def drive():
-    """Each registering sweep's stage call of a 7-sweep drive on the sync
-    path (host exit): (keypoints, previous keypoints, prior, (estimate,
-    counts)), and the Slam after it."""
-    cfg = _config()
-    frames = tsyn.generate_sequence(n_frames=7, motion_distortion=True,
-                                    sensor=tsyn.SensorModel(n_azimuth=500))
+def _recorded_drive(cfg, frames, graph=False):
+    """`frames` through `Slam.add_frame`, each call of the stage recorded:
+    ([(keypoints, previous keypoints, prior, (estimate, counts))], the
+    Slam). `graph`: every sweep after the first steps through the live
+    graph's body (`FrameGraph._body`, called directly: the CPU has no graph
+    to capture)."""
     calls = []
     real = pipeline._ego_registration
 
-    def record(kps, prev, prior, *a, **k):
+    def record(kps, prev, prior, *a, **k):   # copies: the graph's state is written in place
         out = real(kps, prev, prior, *a, **k)
-        calls.append((kps, prev, prior.clone(), out))
+        calls.append(stream_graph.clone_tree((kps, prev, prior, out)))
         return out
 
     mp = pytest.MonkeyPatch()
     mp.setattr(pipeline, "_ego_registration", record)
+    if graph:
+        mp.setattr(stream_graph.FrameGraph, "_step", stream_graph.FrameGraph._body)
     try:
         slam = Slam(cfg, device="cpu")
+        if graph:
+            slam._frame_captured = lambda: True
         for f in frames:
             slam.add_frame(f)
     finally:
         mp.undo()
+    assert (slam._frame_graph is not None) == graph
+    return calls, slam
+
+
+@pytest.fixture(scope="module")
+def drive():
+    """Each registering sweep's stage call of a 7-sweep distorted drive
+    through add_frame: (keypoints, previous keypoints, prior, (estimate,
+    counts)), and the Slam after it."""
+    cfg = _config()
+    frames = tsyn.generate_sequence(n_frames=7, motion_distortion=True,
+                                    sensor=tsyn.SensorModel(n_azimuth=500))
+    calls, slam = _recorded_drive(cfg, frames)
     return cfg, calls, slam, frames
 
 
-@pytest.mark.parametrize("gated", [False, True], ids=["host_exit", "gated"])
-def test_port_ego_stage_holds_to_the_reference(drive, gated):
+@pytest.fixture(scope="module")
+def graph_calls(drive):
+    """The same drive's stage calls through the live graph's body."""
+    cfg, _, _, frames = drive
+    return _recorded_drive(cfg, frames, graph=True)[0]
+
+
+@pytest.mark.parametrize("path", ["gated", "frame_graph"])
+def test_port_ego_stage_holds_to_the_reference(drive, graph_calls, path):
     cfg, calls, _, _ = drive
+    if path == "frame_graph":
+        calls = graph_calls
     prm = _params(cfg)
     assert len(calls) == 6
     for kps, prev, prior, (est, counts) in calls:
-        if gated:   # the graph's form: every round runs, gated on the device
-            est2, counts2 = pipeline._ego_registration(kps, prev, prior, cfg, True)
-            assert torch.equal(est2, est) and torch.equal(counts2, counts)
         r = _reference(kps, prev, prior, prm)
         assert not r.failed and r.matches >= cfg.min_nb_matched_keypoints
         g = ego_check.gaps(est, r.motion)
@@ -130,14 +152,14 @@ def test_bf16_control_fails_the_tolerances(drive):
     prm = _params(cfg)
     for kps, prev, prior, _ in calls:
         with ego_check.bf16_ego():
-            est, _ = pipeline._ego_registration(kps, prev, prior, cfg, True)
+            est, _ = pipeline._ego_registration(kps, prev, prior, cfg)
         g = ego_check.gaps(est, _reference(kps, prev, prior, prm).motion)
         assert g["trans_m"] > TRANS_TOL_M or g["rot_rad"] > ROT_TOL_RAD, g
 
 
 def test_empty_previous_keypoints_give_the_prior():
     """A segment's first sweep: nothing to match, so the stage fails in its
-    first round and both return the prior."""
+    first round and returns the prior, as the reference does."""
     cfg = _config()
     gen = torch.Generator().manual_seed(20121)
     kps = []
@@ -150,10 +172,9 @@ def test_empty_previous_keypoints_give_the_prior():
                              count=torch.tensor(K, dtype=torch.int32)))
     prev = tuple(Keypoints.empty(cfg.extractor.kp_capacity(i), "cpu") for i in range(3))
     prior = torch.tensor([0.2, -0.01, 0.003, 0.001, -0.002, 0.02])
-    for gated in (False, True):
-        est, counts = pipeline._ego_registration(tuple(kps), prev, prior, cfg, gated)
-        assert torch.equal(est, prior)
-        assert counts.tolist() == [1, cfg.ego_motion_lm_max_iter]
+    est, counts = pipeline._ego_registration(tuple(kps), prev, prior, cfg)
+    assert torch.equal(est, prior)
+    assert counts.tolist() == [1, cfg.ego_motion_lm_max_iter]
     r = _reference(kps, prev, prior, _params(cfg))
     assert r.failed and r.matches == 0 and (r.rounds, r.lm_steps) == (1, 15)
     assert torch.equal(r.motion, prior.double())
@@ -202,13 +223,9 @@ def test_reference_recovers_a_known_motion(drive):
 
 
 def test_reference_imports_nothing_of_the_port():
-    """The reference and its copy under slambench/ are the same file and
-    import torch alone: no kernel of the port, no JAX."""
-    port = ROOT / "lidarslam_tpu_torch" / "reference" / "ego_registration.py"
-    copy = ROOT / "slambench" / "ego_reference.py"
-    assert port.read_bytes() == copy.read_bytes()
+    """The reference imports torch alone: no kernel of the port, no JAX."""
     names = set()
-    for node in ast.walk(ast.parse(port.read_text())):
+    for node in ast.walk(ast.parse((ROOT / "slambench" / "ego_reference.py").read_text())):
         if isinstance(node, ast.Import):
             names |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom):

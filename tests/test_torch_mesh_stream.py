@@ -10,8 +10,9 @@ to keep each file under a minute.
 On 9 golden sweeps (the first, then one full window): every rank's poses
 within 1e-3 m / 0.01 deg of JAX's mesh stream, 0 failed frames, the ranks
 bit-equal, and one streaming step on the mesh with every Python-level host
-read of a tensor refused (the step an NCCL mesh captures as a CUDA graph;
-on the card chip_smoke.py's phase 11 replays it)."""
+read of a tensor refused (the step an NCCL mesh captures as a CUDA graph,
+its roll in the captured loop; on the card chip_smoke.py's phase 11
+replays it)."""
 
 import numpy as np
 import pytest

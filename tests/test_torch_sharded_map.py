@@ -161,11 +161,11 @@ ADAPTIVE = [i for i, (_, hops) in enumerate(ranks_mod.ROLL_CASES) if hops is Non
 @pytest.mark.parametrize("case", ADAPTIVE,
                          ids=[f"{ranks_mod.ROLL_CASES[i][0]}" for i in ADAPTIVE])
 def test_sync_free_roll_equals_adaptive_roll(ranks, jax_side, case):
-    """The streaming step's roll (`shard_roll(sync_free=True)`: all n hops,
-    each kept only while the summed stray count before it is above 0, no
-    host read) against the adaptive host loop and JAX's `while_loop`:
-    every slot equal on every rank, after a roll whose strays cross more
-    than one slab."""
+    """The roll a CUDA graph captures (`shard_roll` under capture,
+    `torch_mesh_ranks.as_captured`: all n hops, each kept only while the
+    summed stray count before it is above 0, no host read) against the
+    adaptive host loop and JAX's `while_loop`: every slot equal on every
+    rank, after a roll whose strays cross more than one slab."""
     assert max(abs(o) for o in ranks_mod.ROLL_CASES[case][0]) > 1
     for res in ranks:
         _slot_equal(res["roll_sync_free"][case], res["roll"][case])

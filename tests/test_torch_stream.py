@@ -340,7 +340,7 @@ def _tview(pts):
                  valid=torch.ones(len(pts), dtype=torch.bool))
 
 
-def _icp(seed, pose0, reuse, min_matches, gated, icp_iters=3):
+def _icp(seed, pose0, reuse, min_matches, icp_iters=3):
     edge_map, plane_map, kp_e, kp_p = _scene(seed)
     ones = torch.ones(len(kp_e), dtype=torch.bool)
     return ticp.icp_register(
@@ -350,69 +350,68 @@ def _icp(seed, pose0, reuse, min_matches, gated, icp_iters=3):
                        index=(_tview(edge_map), _tview(plane_map), None)),
         types=(TKeypoint.EDGE, TKeypoint.PLANE), pose0=pose0,
         params=TMatching(reuse_knn=reuse), solver_cfg=TSolver(), icp_iters=icp_iters,
-        lm_max_iter=15, min_matches=min_matches, gated=gated)
+        lm_max_iter=15, min_matches=min_matches, count=True)
 
 
-def _converged_start():
-    """A start where round 0's LM accepts no step: one round's result."""
-    return _icp(0, torch.zeros(6), True, 20, False, icp_iters=1).pose
-
-
-# (scene seed, start pose, reuse_knn, min_matches, rounds the host exit runs)
-_EXITS = {
-    "round0": (0, _converged_start, True, 20, 1),   # LM cannot improve: converged
-    "round1": (1, lambda: torch.zeros(6), False, 187, 2),  # too few matches in round 1
-    "never": (0, lambda: torch.zeros(6), True, 20, 3),
-}
-
-
-@pytest.mark.parametrize("case", sorted(_EXITS))
-def test_gated_icp_equals_host_exit(case, monkeypatch):
-    seed, start, reuse, min_matches, rounds = _EXITS[case]
-    pose0 = start()
-    calls = []
-    real = tsolver.robust_lm
-    monkeypatch.setattr(ticp.solver, "robust_lm",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
-    host = _icp(seed, pose0, reuse, min_matches, gated=False)
-    assert len(calls) == rounds          # the exit fires where the case says
-    gated = _icp(seed, pose0, reuse, min_matches, gated=True)
-    assert len(calls) == rounds + 3      # the gated form runs every round
-    for a, b in zip(host, gated):
-        if a is None:                    # no warp without undistortion
-            assert b is None
-            continue
-        for x, y in zip(a if isinstance(a, tuple) else (a,),
-                        b if isinstance(b, tuple) else (b,)):
-            assert torch.equal(x, y)
-
-
-def test_gated_icp_matches_jax():
-    """The gated loop against the JAX while_loop, at the localization
-    tests' tolerance (tests/test_torch_localization.py)."""
+def _jax_icp(seed, pose0, reuse, min_matches, icp_iters=3):
     from lidarslam_tpu.config import Keypoint as JKeypoint
     from lidarslam_tpu.config import SolverConfig as JSolver
     from lidarslam_tpu.ops import icp as jicp
     from lidarslam_tpu.ops.voxel_map import SubmapView as JView
 
-    edge_map, plane_map, kp_e, kp_p = _scene(1)
+    edge_map, plane_map, kp_e, kp_p = _scene(seed)
     ones = np.ones(len(kp_e), bool)
-    pose0 = np.array([0.05, -0.04, 0.02, 0.01, -0.01, 0.015], np.float32)
 
     def jview(p):
         return JView(xyz=jnp.asarray(p, jnp.float32), ring=jnp.zeros(len(p), jnp.int32),
                      valid=jnp.ones(len(p), bool))
-    j = jicp.icp_register(
+    return jicp.icp_register(
         jicp.ICPInputs(kp_xyz=(jnp.asarray(kp_e, jnp.float32), jnp.asarray(kp_p, jnp.float32),
                                None), kp_valid=(jnp.asarray(ones), jnp.asarray(ones), None),
                        index=(jview(edge_map), jview(plane_map), None)),
         types=(JKeypoint.EDGE, JKeypoint.PLANE), pose0=jnp.asarray(pose0),
-        params=JMatching(reuse_knn=True), solver_cfg=JSolver(), icp_iters=3,
-        lm_max_iter=15, min_matches=20, geoms=(None, None, None))
-    t = _icp(1, torch.from_numpy(pose0), True, 20, gated=True)
+        params=JMatching(reuse_knn=reuse), solver_cfg=JSolver(), icp_iters=icp_iters,
+        lm_max_iter=15, min_matches=min_matches, geoms=(None, None, None))
+
+
+def _converged_start(side):
+    """A start where round 0's LM accepts no step: each side's own one-round
+    result (a step accepted or not is decided at rounding level)."""
+    if side == "jax":
+        return np.asarray(_jax_icp(0, np.zeros(6, np.float32), True, 20, icp_iters=1).pose)
+    return _icp(0, torch.zeros(6), True, 20, icp_iters=1).pose.numpy()
+
+
+_LOC_START = np.array([0.05, -0.04, 0.02, 0.01, -0.01, 0.015], np.float32)
+
+# (scene seed, start pose per side, reuse_knn, min_matches, rounds begun
+# with the gate open: the reference breaks after the last)
+_EXITS = {
+    "round0": (0, _converged_start, True, 20, 1),   # LM cannot improve: converged
+    "round1": (1, lambda side: _LOC_START, False, 187, 2),  # too few matches in round 1
+    "never": (0, lambda side: np.zeros(6, np.float32), True, 20, 3),
+    "localization": (1, lambda side: _LOC_START, True, 20, 3),  # the localization tests'
+}
+
+
+@pytest.mark.parametrize("case", sorted(_EXITS))
+def test_gated_icp_matches_jax(case, monkeypatch):
+    """The gated loop runs every round and counts the rounds begun with the
+    gate open, which end where the reference breaks; its result is the JAX
+    while_loop's at the localization tests' tolerance
+    (tests/test_torch_localization.py)."""
+    seed, start, reuse, min_matches, rounds = _EXITS[case]
+    pose_t, pose_j = torch.from_numpy(start("torch")), start("jax")
+    calls = []
+    real = tsolver.robust_lm
+    monkeypatch.setattr(ticp.solver, "robust_lm",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    t = _icp(seed, pose_t, reuse, min_matches)
+    assert len(calls) == 3 and int(t.rounds) == rounds
+    j = _jax_icp(seed, pose_j, reuse, min_matches)
     np.testing.assert_allclose(t.pose.numpy(), np.asarray(j.pose), atol=1e-5, rtol=0)
     np.testing.assert_array_equal(t.match_counts.numpy(), np.asarray(j.match_counts))
-    assert bool(t.failed) == bool(j.failed) is False
+    assert bool(t.failed) == bool(j.failed) == (case == "round1")
 
 
 def test_jacobi_covariance_matches_pinv():
@@ -478,9 +477,9 @@ def test_stream_unported_options_raise(runs, change):
 
 
 # the live graph's step (ops/stream_graph.FrameGraph) against add_frame's
-# host-branch step: (undistortion, keyframe thresholds (m, deg), what
-# happens between the sweeps MID and MID + 1, scan-to-scan ego-motion
-# registration on)
+# eager step: (undistortion, keyframe thresholds (m, deg), what happens
+# between the sweeps MID and MID + 1, scan-to-scan ego-motion registration
+# on)
 _LIVE_MID = 3
 _LIVE_CASES = {
     "keyframe_every_sweep": ("NONE", (0.0, 0.0), None, False),
@@ -513,16 +512,17 @@ def _live_config(undistortion, kf, ego=False):
 
 
 @pytest.mark.parametrize("case", sorted(_LIVE_CASES))
-def test_live_graph_step_equals_host_branches(case, monkeypatch):
+def test_live_graph_step_equals_the_eager_step(case, monkeypatch):
     """add_frame's step through the live graph's body (`FrameGraph._body`,
-    called directly: the CPU has no graph to capture) against the
-    host-branch step, from the same host state every sweep: the same
-    packed scalars (the overflow after the insert in both), poses, maps
-    and keypoints. Between two sweeps a case forces the submap stale, or
-    runs a stream segment, after which the graph's state is reseeded. With
+    called directly: the CPU has no graph to capture) against the eager
+    step, the same function: the graph's plumbing (its input record, the
+    seeding, the state buffers written in place) changes nothing. From the
+    same host state every sweep: the same packed scalars, poses, maps and
+    keypoints. Between two sweeps a case forces the submap stale, or runs a
+    stream segment, after which the graph's state is reseeded. With
     ego-motion registration the packed scalars carry its estimate and its
-    device counts, the same on both forms; the segment's first sweep
-    registers against empty previous keypoints and keeps its prior."""
+    device counts; the segment's first sweep registers against empty
+    previous keypoints and keeps its prior."""
     from lidarslam_tpu_torch.io import synthetic as tsyn
 
     undistortion, kf, event, ego = _LIVE_CASES[case]
@@ -539,7 +539,7 @@ def test_live_graph_step_equals_host_branches(case, monkeypatch):
     rows = ([], [])
     for s, r in zip(slams, rows):
         s._apply_result = (lambda res, *a, real=s._apply_result, r=r:
-                           r.append((res.packed.copy(), res.is_keyframe)) or real(res, *a))
+                           r.append((res.packed.clone(), res.is_keyframe)) or real(res, *a))
     kfs, ego_counts, ego_notes = [], [], ([], [])
     for s, notes in zip(slams, ego_notes):
         s._note_ego = (lambda u, real=s._note_ego, notes=notes:

@@ -128,9 +128,10 @@ def test_identity_warp_matches_jax():
     assert torch.equal(tund.warp_points(_t(xyz), torch.zeros(50), t), _t(xyz))
 
 
-def _icp_inputs(seed, mode_t, mode_j):
-    """_scene's keypoints with per-point times over a 0.1 s sweep, a previous
-    pose 0.2 m / 2 deg behind, in both packages."""
+def _icp_runs(seed, mode_t, mode_j):
+    """The ICP of _scene's keypoints with per-point times over a 0.1 s
+    sweep, a previous pose 0.2 m / 2 deg behind, in both packages: (JAX's
+    result, the port's)."""
     edge_map, plane_map, kp_e, kp_p = _scene(seed)
     rng = np.random.default_rng(50 + seed)
     q = len(kp_e)
@@ -159,42 +160,32 @@ def _icp_inputs(seed, mode_t, mode_j):
         params=JMatching(reuse_knn=True), solver_cfg=JSolver(), geoms=(None, None, None),
         undistort_mode=mode_j, prev_pose=jnp.asarray(prev), t_prev=jnp.float32(9.9),
         t_cur=jnp.float32(10.0), time_range=tuple(jnp.float32(x) for x in trange), **kw)
-
-    def torch_run(gated):
-        return ticp.icp_register(
-            ticp.ICPInputs(kp_xyz=(_t(kp_e.astype(np.float32)), _t(kp_p.astype(np.float32)),
-                                   None), kp_valid=(_t(ones), _t(ones), None),
-                           index=(tview(edge_map), tview(plane_map), None),
-                           kp_time=(_t(te), _t(tp), None)),
-            types=(TKeypoint.EDGE, TKeypoint.PLANE), pose0=_t(pose0),
-            params=TMatching(reuse_knn=True), solver_cfg=TSolver(), undistort_mode=mode_t,
-            prev_pose=_t(prev), t_prev=torch.tensor(np.float32(9.9)),
-            t_cur=torch.tensor(np.float32(10.0)),
-            time_range=tuple(torch.tensor(x) for x in trange), gated=gated, **kw)
-    return j, torch_run
+    t = ticp.icp_register(
+        ticp.ICPInputs(kp_xyz=(_t(kp_e.astype(np.float32)), _t(kp_p.astype(np.float32)),
+                               None), kp_valid=(_t(ones), _t(ones), None),
+                       index=(tview(edge_map), tview(plane_map), None),
+                       kp_time=(_t(te), _t(tp), None)),
+        types=(TKeypoint.EDGE, TKeypoint.PLANE), pose0=_t(pose0),
+        params=TMatching(reuse_knn=True), solver_cfg=TSolver(), undistort_mode=mode_t,
+        prev_pose=_t(prev), t_prev=torch.tensor(np.float32(9.9)),
+        t_cur=torch.tensor(np.float32(10.0)),
+        time_range=tuple(torch.tensor(x) for x in trange), **kw)
+    return j, t
 
 
 @pytest.mark.parametrize("mode", ["ONCE", "REFINED"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_icp_undistortion_matches_jax(mode, seed):
     """ONCE and REFINED: pose within 1e-4 m of JAX, statuses and counts
-    equal, a final warp that agrees, and the host-exit loop bit-identical to
-    the gated one."""
-    j, torch_run = _icp_inputs(seed, TUndistortion[mode], JUndistortion[mode])
-    host, gated = torch_run(False), torch_run(True)
-    for a, b in zip(host, gated):
-        if a is None:
-            continue
-        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple)
-                        else (b,)):
-            assert torch.equal(x, y)
-    np.testing.assert_allclose(host.pose.numpy(), np.asarray(j.pose), atol=1e-4, rtol=0)
-    assert bool(host.failed) == bool(j.failed) is False
-    np.testing.assert_array_equal(host.match_counts.numpy(), np.asarray(j.match_counts))
-    for st, sj in zip(host.statuses, j.statuses):
+    equal, and a final warp that agrees."""
+    j, t = _icp_runs(seed, TUndistortion[mode], JUndistortion[mode])
+    np.testing.assert_allclose(t.pose.numpy(), np.asarray(j.pose), atol=1e-4, rtol=0)
+    assert bool(t.failed) == bool(j.failed) is False
+    np.testing.assert_array_equal(t.match_counts.numpy(), np.asarray(j.match_counts))
+    for st, sj in zip(t.statuses, j.statuses):
         np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
     for name in tund.WarpParams._fields:
-        np.testing.assert_allclose(getattr(host.warp, name).numpy(),
+        np.testing.assert_allclose(getattr(t.warp, name).numpy(),
                                    np.asarray(getattr(j.warp, name)), atol=1e-4, rtol=0,
                                    err_msg=name)
 

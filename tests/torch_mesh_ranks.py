@@ -8,6 +8,7 @@ files and compares the numpy results the ranks return. Every function
 takes the rank's `Mesh` first and returns plain numpy / Python values.
 """
 
+import contextlib
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 
@@ -27,6 +28,18 @@ RANK_TIMEOUT_S = 300
 # tests/test_multichip.py's bounds on a mesh run against a single-device
 # one: float32 reassociation across the psum fed back through ICP
 POSE_M, POSE_DEG = 1e-3, 0.01
+
+
+@contextlib.contextmanager
+def as_captured():
+    """`sharded_map.shard_roll` taking the loop it takes under CUDA-graph
+    capture (the fixed-length loop, no host read) on any device."""
+    real = sharded_map._capturing
+    sharded_map._capturing = lambda t: True
+    try:
+        yield
+    finally:
+        sharded_map._capturing = real
 
 
 def launch_beside(fn, world, args, local):
@@ -340,11 +353,11 @@ def sharded_map_checks(mesh, jax_npz):
         r = sharded_map.roll_sharded(mesh, roll_map, offset, MAP_CFG, max_hops=hops)
         out["roll"].append(_global(mesh, r))
         out["owns"].append(_owns(mesh, r))
-        # the streaming step's form of the adaptive roll: hops of fixed count
-        out["roll_sync_free"].append(None if hops is not None else _global(
-            mesh, sharded_map._with_global_overflow(sharded_map.shard_roll, mesh)(
-                roll_map, torch.as_tensor(offset, dtype=torch.int32), MAP_CFG, mesh,
-                sync_free=True)))
+        # the adaptive roll as a CUDA graph captures it: hops of fixed count
+        with as_captured():
+            out["roll_sync_free"].append(None if hops is not None else _global(
+                mesh, sharded_map._with_global_overflow(sharded_map.shard_roll, mesh)(
+                    roll_map, torch.as_tensor(offset, dtype=torch.int32), MAP_CFG, mesh)))
 
     few = sharded_map.roll_sharded(mesh, _insert(mesh, empty, ((2000, 6),)), FEW_HOPS_OFFSET,
                                    MAP_CFG, max_hops=1)
@@ -495,8 +508,9 @@ HOST_READS = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist",
 
 def _step_reads_on_host(slam, frame):
     """One mesh streaming step of `slam` (the SPMD step the mesh graph
-    captures) on `frame`, with every Python-level host read of a tensor made
-    to raise: (None or the error's text, the step's total matches)."""
+    captures, its roll taking the captured loop: `as_captured`) on `frame`,
+    with every Python-level host read of a tensor made to raise: (None or
+    the error's text, the step's total matches)."""
     cfg = slam.cfg
     ri = slam._build_ri(frame)
     stamp = torch.tensor(frame["stamp"], dtype=torch.float32)
@@ -508,8 +522,9 @@ def _step_reads_on_host(slam, frame):
     try:
         for name in HOST_READS:
             setattr(torch.Tensor, name, refuse)
-        _, packed, _ = slam._step("process_frame_stream")(
-            ri, slam._stream_state, stamp, az, cfg, slam._map_cfgs_tuple, False)
+        with as_captured():
+            _, packed, _ = slam._step("process_frame_stream")(
+                ri, slam._stream_state, stamp, az, cfg, slam._map_cfgs_tuple, False)
     except AssertionError as e:
         return str(e), None
     finally:
